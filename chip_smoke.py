@@ -1,4 +1,5 @@
-"""Drive the PyTorch port's serving path once on one NVIDIA GPU and check it.
+"""Drive the PyTorch port's serving and training paths on one NVIDIA GPU and
+check them.
 
     python3 chip_smoke.py            # from the repository root; needs one card
 
@@ -17,8 +18,23 @@ Phases, one output line each (any failure raises and exits non-zero):
               ``over`` matrix of each request, card-vs-CPU float32 logits and
               bf16-vs-float32 logits (init weights), and the whole slice
               card-vs-CPU in float64 (served weights).
-5. timing   — CUDA-event throughput at batch 128 (f32, bf16, u8), batch-1
-              latency, and the kernel's time beside its twin's.
+5. aug_kernels — the two augmentation kernels (``slot_aug``, ``aug_compose``)
+              against their plain twins on a random geometry batch (batch
+              32, 4 slots per image, stage 352 and 416; 1-tile and 4-tile
+              images, flips, mean and constant fills, both hue signs,
+              noise on, one seed on both sides), and the bulk statistics of
+              the kernel's noise field.
+6. train    — the full-width VOC MBv2-YOLO trained through
+              ``make_geometry_train_step``: a few batch-32 352x352 steps in
+              each aug mode (``fused_aug`` True, "split", False) in float32
+              and bf16, one 416x416 step; checks the losses are finite, the
+              parameters and BatchNorm statistics moved, each kernel launched
+              once per step of its mode, and that the first float32 losses
+              of the kernel modes agree with the plain ops' (noise on: every
+              mode draws one noise stream from one seed).
+7. timing   — CUDA-event throughput at batch 128 (f32, bf16, u8), batch-1
+              latency, the train step per mode and dtype, and each kernel's
+              time beside its twin's.
 
 The line before the last is the per-kernel JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX, yaml or PIL.
@@ -37,9 +53,13 @@ import torch
 
 from mobilenet_yolo_tpu_torch.eval import make_predict_fn
 from mobilenet_yolo_tpu_torch.kernels import _build
+from mobilenet_yolo_tpu_torch.kernels.aug_compose import aug_compose, aug_compose_reference
 from mobilenet_yolo_tpu_torch.kernels.nms_suppress import suppress, suppress_reference
+from mobilenet_yolo_tpu_torch.kernels.slot_aug import slot_aug, slot_aug_reference
 from mobilenet_yolo_tpu_torch.models import build_model
 from mobilenet_yolo_tpu_torch.ops.nms import _suppression_matrix
+from mobilenet_yolo_tpu_torch.train import (GEOMETRY_BATCH_KEYS, create_train_state,
+                                            make_geometry_train_step, random_geometry_batch)
 
 # the VOC model contract of mobilenet_yolo_tpu/configs/voc/config.yaml
 VOC_CONFIG = {
@@ -53,8 +73,19 @@ VOC_CONFIG = {
         "mask": [[0, 1, 2], [3, 4, 5]],
     },
 }
+# the training values of the same file
+TRAIN_CONFIG = {
+    **VOC_CONFIG,
+    "iou_weighting": 0.021830872589525777,
+    "yolo": {**VOC_CONFIG["yolo"], "ignore_thresh": [0.6076333316652263, 0.5623606200028424],
+             "iou_thresh": 0.5497280113447018},
+}
 SEED = 0
 BATCH = 128
+TRAIN_BATCH = 32
+TRAIN_SIZES = (352, 416)  # the step's main bucket and the multiscale maximum
+TRAIN_STEPS = 3
+AUG_SEED = 1234
 SIZE = 352
 VAL_CONF = 0.3
 IOU = 0.45
@@ -67,8 +98,33 @@ BF16_REL_TOL = 5e-2
 # kept detections (boxes and scores in [0, 1]) of the float64 slice,
 # card vs CPU, after the heads' cast to float32 for decode
 DETS_TOL = 1e-6
-SUPPRESS_SOURCE = "mobilenet_yolo_tpu_torch/csrc/nms_suppress.cu"
-SUPPRESS_REPLACES = "mobilenet_yolo_tpu/kernels/pallas_nms.py:59"
+# augmentation kernels vs twins on the bf16 output in [0, 255]: both
+# compute in float32 and round once, so a few float32 ulp may tip one
+# rounding by one bf16 spacing (1.0 in [128, 256)), and rarely
+AUG_MAX_ERR = 1.0
+AUG_MEAN_ERR = 0.05
+# noise field of mid-grey slots at std 12: bulk mean within 0.02 (about 10
+# standard errors of 30 M draws), bulk std within 0.5%; per slot the mean
+# within 0.2 and the std within 2% (a shared-plane slot draws 124k values)
+NOISE_STD = 12.0
+NOISE_BULK_MEAN_TOL = 0.02
+NOISE_BULK_STD_REL = 5e-3
+NOISE_SLOT_MEAN_TOL = 0.2
+NOISE_SLOT_STD_REL = 2e-2
+# kernel-mode vs plain-op step loss, same weights, batch and noise: the
+# kernels round their images (full) or slots (split) to bf16, at most 0.5
+# of 255 per rounding
+AUG_MODE_LOSS_RTOL = 2e-2
+KERNELS = {
+    "nms_suppress": ("mobilenet_yolo_tpu_torch/csrc/nms_suppress.cu",
+                     "mobilenet_yolo_tpu/kernels/pallas_nms.py:59"),
+    "slot_aug": ("mobilenet_yolo_tpu_torch/csrc/slot_aug.cu",
+                 "mobilenet_yolo_tpu/kernels/pallas_aug.py:216"),
+    "aug_compose": ("mobilenet_yolo_tpu_torch/csrc/aug_compose.cu",
+                    "mobilenet_yolo_tpu/kernels/pallas_aug.py:388"),
+}
+MODES = {"full": True, "split": "split", "plain": False}
+DTYPES = {"f32": None, "bf16": torch.bfloat16}
 
 
 def report(phase: str, **fields) -> None:
@@ -270,6 +326,152 @@ def phase_serve(device) -> tuple[int, dict]:
                       "u8": u8, "val_conf": val_conf}
 
 
+def geometry_tensors(batch: dict, device) -> dict[str, torch.Tensor]:
+    return {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
+
+
+def slot_args(g: dict, seed: int) -> tuple:
+    """The per-slot view of a geometry batch, as the split path feeds
+    ``slot_aug``: (B*T, S, S, 3) slots and (B*T, ...) plans."""
+    b, t, s = g["slots"].shape[:3]
+    return (g["slots"].reshape(b * t, s, s, 3), seed,
+            *(g[k].reshape(b * t, *g[k].shape[2:])
+              for k in ("noise_gate", "noise_scale", "noise_per_channel", "jitter_op",
+                        "jitter_factor")))
+
+
+def compose_args(g: dict, seed: int) -> tuple:
+    return (g["slots"], seed,
+            *(g[k] for k in ("noise_gate", "noise_scale", "noise_per_channel", "jitter_op",
+                             "jitter_factor", "src_rect", "dst_rect", "fill_rect",
+                             "fill_color", "fill_from_mean", "flip", "active")))
+
+
+def aug_err(got: torch.Tensor, want: torch.Tensor, what: str) -> float:
+    d = (got.float() - want.float()).abs()
+    worst, mean = float(d.max()), float(d.mean())
+    check(worst <= AUG_MAX_ERR and mean < AUG_MEAN_ERR,
+          f"{what}: max |kernel - twin| {worst} <= {AUG_MAX_ERR}, mean {mean:.3g} < {AUG_MEAN_ERR}")
+    return worst
+
+
+def phase_aug_kernels(device) -> tuple[dict, dict]:
+    worst = {"slot_aug": 0.0, "aug_compose": 0.0}
+    batches = {}
+    for stage in TRAIN_SIZES:
+        g = geometry_tensors(random_geometry_batch(np.random.default_rng(SEED + stage),
+                                                   TRAIN_BATCH, stage), device)
+        batches[stage] = g
+        ops, facs = g["jitter_op"], g["jitter_factor"]
+        hue = ops == 3
+        report("aug_kernels", stage=stage, slots=int(g["active"].sum()),
+               four_tile_images=int((g["active"].sum(1) == 4).sum()),
+               mean_fills=int(g["fill_from_mean"].sum()), flips=int(g["flip"].sum()),
+               noised=int(g["noise_gate"].sum()),
+               hue_negative=int((hue & (facs < 0)).sum()),
+               hue_positive=int((hue & (facs > 0)).sum()))
+        check(bool((hue & (facs < 0)).any() and (hue & (facs > 0)).any()),
+              "the batch holds both hue signs")
+        tiles = g["active"].sum(1)
+        check(bool((tiles == 1).any() and (tiles == 4).any() and g["noise_gate"].any()),
+              "the batch holds 1-tile and 4-tile images and noised slots")
+        args = slot_args(g, AUG_SEED)
+        err = aug_err(slot_aug(*args), slot_aug_reference(*args, dtype=torch.bfloat16),
+                      f"slot_aug S={stage}")
+        worst["slot_aug"] = max(worst["slot_aug"], err)
+        args = compose_args(g, AUG_SEED)
+        err = aug_err(aug_compose(*args, (stage, stage)),
+                      aug_compose_reference(*args, (stage, stage)), f"aug_compose S={stage}")
+        worst["aug_compose"] = max(worst["aug_compose"], err)
+        report("aug_kernels", stage=stage, slot_aug_max_abs_err=worst["slot_aug"],
+               aug_compose_max_abs_err=worst["aug_compose"], tol=AUG_MAX_ERR)
+
+    # the kernel's noise field alone: mid-grey slots, noise on, no program
+    n, stage = TRAIN_BATCH * 4, TRAIN_SIZES[0]
+    slots = torch.full((n, stage, stage, 3), 128, dtype=torch.uint8, device=device)
+    plan = (torch.ones(n, dtype=torch.bool, device=device),
+            torch.full((n,), NOISE_STD, device=device),
+            torch.arange(n, device=device) % 3 == 0,   # per-channel draws on a third
+            torch.full((n, 5), -1, dtype=torch.int32, device=device),
+            torch.ones((n, 5), device=device))
+    delta = slot_aug(slots, AUG_SEED, *plan, dtype=torch.float32) - 128.0
+    mean, std = float(delta.mean()), float(delta.std())
+    slot_mean = delta.mean(dim=(1, 2, 3)).abs().max().item()
+    slot_std = (delta.std(dim=(1, 2, 3)) / NOISE_STD - 1.0).abs().max().item()
+    check(abs(mean) < NOISE_BULK_MEAN_TOL, f"noise bulk mean {mean:.4g}")
+    check(abs(std / NOISE_STD - 1.0) < NOISE_BULK_STD_REL, f"noise bulk std {std:.5g}")
+    check(slot_mean < NOISE_SLOT_MEAN_TOL and slot_std < NOISE_SLOT_STD_REL,
+          f"noise per slot: max |mean| {slot_mean:.4g}, max |std/scale - 1| {slot_std:.4g}")
+    report("aug_kernels", noise_slots=n, bulk_mean=f"{mean:.5f}", bulk_std=f"{std:.5f}",
+           scale=NOISE_STD, slot_max_abs_mean=f"{slot_mean:.4f}",
+           slot_max_std_rel_err=f"{slot_std:.4f}")
+    return worst, batches
+
+
+def step_args(g: dict, seed: int) -> tuple:
+    return (*(g[k] for k in GEOMETRY_BATCH_KEYS), g["gt"], g["n_gt"], seed)
+
+
+def phase_train(device, batches: dict) -> tuple[dict, dict]:
+    """The main training path: seeded full-width weights, a few geometry
+    steps per aug mode and dtype, the kernels' launch counts read around
+    them."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    init = build_model(TRAIN_CONFIG, generator=torch.Generator().manual_seed(SEED))
+    init = init.to(device).to(memory_format=torch.channels_last)
+    size, large = TRAIN_SIZES
+    g, g_large = batches[size], batches[large]
+    watch = ("backbone.stem.conv.weight", "yolo_headS32.out.weight", "backbone.stem.bn.running_mean",
+             "backbone.block16.project.bn.running_var")
+    start = {k: v.detach().clone() for k, v in init.state_dict().items() if k in watch}
+    check(len(start) == len(watch), f"watched tensors exist: {sorted(start)}")
+
+    runs, losses_by_run, expected = {}, {}, {"slot_aug": 0, "aug_compose": 0}
+    slot_aug.launches = aug_compose.launches = 0
+    for dt_name, dtype in DTYPES.items():
+        for mode_name, mode in MODES.items():
+            model = copy.deepcopy(init)
+            state = create_train_state(model)
+            step = make_geometry_train_step(model, TRAIN_CONFIG, fused_aug=mode, dtype=dtype)
+            losses = []
+            for i in range(TRAIN_STEPS):
+                state, metrics = step(state, *step_args(g, AUG_SEED + i), out_hw=(size, size))
+                losses.append(metrics["loss"])
+            n_steps = TRAIN_STEPS
+            if mode_name == "full":
+                state, metrics = step(state, *step_args(g_large, AUG_SEED), out_hw=(large, large))
+                losses.append(metrics["loss"])
+                n_steps += 1
+            expected["aug_compose" if mode_name == "full" else "slot_aug"] += \
+                n_steps if mode_name != "plain" else 0
+            losses = [float(x) for x in losses]
+            check(all(np.isfinite(losses)), f"{mode_name}/{dt_name} losses finite: {losses}")
+            moved = {k: not torch.equal(v, model.state_dict()[k]) for k, v in start.items()}
+            check(all(moved.values()), f"{mode_name}/{dt_name} params and BN stats moved: {moved}")
+            report("train", mode=mode_name, dtype=dt_name, batch=TRAIN_BATCH,
+                   steps=f"{TRAIN_STEPS}x{size}" + (f"+1x{large}" if mode_name == "full" else ""),
+                   losses="/".join(f"{x:.5f}" for x in losses), moved=True)
+            runs[(mode_name, dt_name)] = (step, state)
+            losses_by_run[(mode_name, dt_name)] = losses
+    torch.cuda.synchronize()
+    launches = {"slot_aug": slot_aug.launches, "aug_compose": aug_compose.launches}
+    check(launches == expected, f"kernel launches {launches} == steps of their modes {expected}")
+    report("train", launches=launches, expected=expected)
+
+    # the same weights, batch and seed through each mode: the kernels
+    # against the plain ops, noise included (the card counterpart of the
+    # JAX package's test_fused_step_matches_xla_step)
+    first = {m: float(losses_by_run[(m, "f32")][0]) for m in MODES}
+    rel = {m: abs(first[m] - first["plain"]) / abs(first["plain"]) for m in ("full", "split")}
+    check(all(r <= AUG_MODE_LOSS_RTOL for r in rel.values()),
+          f"first f32 losses {first}: rel to plain {rel} <= {AUG_MODE_LOSS_RTOL}")
+    report("train", first_loss_full=f"{first['full']:.6f}", first_loss_split=f"{first['split']:.6f}",
+           first_loss_plain=f"{first['plain']:.6f}", rel_full=f"{rel['full']:.3g}",
+           rel_split=f"{rel['split']:.3g}", tol=AUG_MODE_LOSS_RTOL)
+    return launches, runs
+
+
 def phase_timing(device, smi: str, state: dict) -> dict:
     predict, val_conf = state["predict"], state["val_conf"]
     model, x128 = state["model"], state["x128"]
@@ -300,23 +502,53 @@ def phase_timing(device, smi: str, state: dict) -> dict:
 
     gen = torch.Generator(device=device).manual_seed(SEED + 2)
     over, valid = random_over(gen, BATCH, 256, 0.05, device)
+    times = {}
     kernel_ms = cuda_ms(lambda: suppress(over, valid), iters=100, warmup=5)
     plain_ms = cuda_ms(lambda: suppress_reference(over, valid), iters=5)
+    times["nms_suppress"] = {"ms": kernel_ms, "plain_ms": plain_ms}
     report("timing", what="suppress_b128_k256", kernel_ms=f"{kernel_ms:.4f}",
            plain_ms=f"{plain_ms:.4f}", card=f"'{smi}'")
-    return {"ms": kernel_ms, "plain_ms": plain_ms}
+
+    size = TRAIN_SIZES[0]
+    g = state["batches"][size]
+    args = slot_args(g, AUG_SEED)
+    kernel_ms = cuda_ms(lambda: slot_aug(*args), iters=20)
+    plain_ms = cuda_ms(lambda: slot_aug_reference(*args, dtype=torch.bfloat16), iters=3)
+    times["slot_aug"] = {"ms": kernel_ms, "plain_ms": plain_ms}
+    report("timing", what=f"slot_aug_n{TRAIN_BATCH * 4}_s{size}", kernel_ms=f"{kernel_ms:.4f}",
+           plain_ms=f"{plain_ms:.4f}", card=f"'{smi}'")
+    args = compose_args(g, AUG_SEED)
+    kernel_ms = cuda_ms(lambda: aug_compose(*args, (size, size)), iters=20)
+    plain_ms = cuda_ms(lambda: aug_compose_reference(*args, (size, size)), iters=3)
+    times["aug_compose"] = {"ms": kernel_ms, "plain_ms": plain_ms}
+    report("timing", what=f"aug_compose_b{TRAIN_BATCH}_s{size}", kernel_ms=f"{kernel_ms:.4f}",
+           plain_ms=f"{plain_ms:.4f}", card=f"'{smi}'")
+
+    for (mode_name, dt_name), (step, train_state) in state["train_runs"].items():
+        step_ms = cuda_ms(lambda: step(train_state, *step_args(g, AUG_SEED),
+                                       out_hw=(size, size)), iters=5, warmup=1)
+        report("timing", what=f"train_step_b{TRAIN_BATCH}_{size}_{mode_name}_{dt_name}",
+               ms_per_step=f"{step_ms:.3f}", img_per_s=f"{TRAIN_BATCH * 1000.0 / step_ms:.1f}",
+               tf32=False, card=f"'{smi}'")
+    return times
 
 
 def main() -> None:
     device, smi = phase_device()
     phase_build()
-    max_err = phase_kernel(device)
-    launches, state = phase_serve(device)
+    max_err = {"nms_suppress": phase_kernel(device)}
+    launches = {}
+    launches["nms_suppress"], state = phase_serve(device)
+    aug_errs, batches = phase_aug_kernels(device)
+    max_err.update(aug_errs)
+    train_launches, state["train_runs"] = phase_train(device, batches)
+    launches.update(train_launches)
+    state["batches"] = batches
     times = phase_timing(device, smi, state)
     print(json.dumps({"kernels": [{
-        "name": "nms_suppress", "route": "cuda", "source": SUPPRESS_SOURCE,
-        "replaces": SUPPRESS_REPLACES, "launches": launches, "max_abs_err": max_err,
-        "ms": times["ms"], "plain_ms": times["plain_ms"]}]}))
+        "name": name, "route": "cuda", "source": source, "replaces": replaces,
+        "launches": launches[name], "max_abs_err": max_err[name], "ms": times[name]["ms"],
+        "plain_ms": times[name]["plain_ms"]} for name, (source, replaces) in KERNELS.items()]}))
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

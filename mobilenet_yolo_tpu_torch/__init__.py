@@ -7,5 +7,9 @@ never ``jax``.
 
 Ported so far: the serving path — ``models`` (MBv2-YOLO), ``ops`` (anchors,
 boxes, decode, NMS), ``kernels`` (the hand-written NMS suppression scan)
-and ``eval.detector.make_predict_fn`` — plus ``convert`` for the weights.
+and ``eval.detector.make_predict_fn`` — plus ``convert`` for the weights;
+and the training step — ``ops`` (straight-through sigmoid, CIoU/GIoU,
+target assignment, losses, device augmentation), ``kernels`` (the
+hand-written slot-augmentation and augment-and-compose kernels) and
+``train`` (AdamW state, schedule, plain and device-geometry steps).
 """

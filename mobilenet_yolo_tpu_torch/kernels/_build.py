@@ -1,11 +1,13 @@
 """Build the port's CUDA kernels with ``nvcc`` and load them with ``ctypes``.
 
 Every ``*.cu`` file in ``mobilenet_yolo_tpu_torch/csrc/`` is compiled for
-Hopper (``sm_90a``) into one shared library with a plain C interface, at
-first use, under ``build/torch_kernels/`` at the repository root. The file
-name carries a hash of the sources and flags, so an edited source builds
-anew and an unchanged one loads the library already built. No source
-includes PyTorch's headers, which keeps the build to seconds.
+Hopper (``sm_90a``), one ``nvcc`` per source, all started together, and
+the objects are linked into one shared library with a plain C interface,
+at first use, under ``build/torch_kernels/`` at the repository root. The
+file name carries a hash of the sources (``*.cu`` and the ``*.cuh`` they
+include) and flags, so an edited source builds anew and an unchanged one
+loads the library already built. No source includes PyTorch's headers,
+which keeps the build to seconds.
 """
 
 from __future__ import annotations
@@ -23,7 +25,7 @@ PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 
 def _nvcc() -> str:
@@ -40,7 +42,7 @@ def _nvcc() -> str:
 
 def library_path() -> Path:
     """Where the library for the current sources lives (built or not)."""
-    sources = sorted(CSRC_DIR.glob("*.cu"))
+    sources = sorted([*CSRC_DIR.glob("*.cu"), *CSRC_DIR.glob("*.cuh")])
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for src in sources:
         digest.update(src.name.encode())
@@ -58,19 +60,33 @@ def build() -> Path:
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    sources = [str(s) for s in sorted(CSRC_DIR.glob("*.cu"))]
-    # compile to a private name, then rename: a concurrent build never
-    # loads a half-written library
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, *sources],
-                          capture_output=True, text=True)
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
-    out.with_suffix(".log").write_text(log)
-    os.replace(tmp, out)
+    nvcc = _nvcc()
+    # compile into a private directory, then rename the library: a
+    # concurrent build never loads a half-written one
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        procs = []
+        for src in sorted(CSRC_DIR.glob("*.cu")):
+            obj = Path(tmp) / f"{src.stem}.o"
+            procs.append((src.name, obj, subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+        logs, failed = [], []
+        for name, _, proc in procs:
+            text, _ = proc.communicate()
+            logs.append(f"== {name}\n{text}")
+            if proc.returncode != 0:
+                failed.append(name)
+        if failed:
+            raise RuntimeError(f"nvcc failed on {failed}:\n" + "\n".join(logs))
+        lib = Path(tmp) / out.name
+        link = subprocess.run([nvcc, "-shared", "-o", str(lib),
+                               *(str(obj) for _, obj, _ in procs)],
+                              capture_output=True, text=True)
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({link.returncode}):\n"
+                               f"{link.stdout}{link.stderr}")
+        out.with_suffix(".log").write_text("\n".join(logs))
+        os.replace(lib, out)
     return out
 
 
@@ -84,4 +100,17 @@ def load() -> ctypes.CDLL:
                                      ctypes.c_void_p, ctypes.c_int,
                                      ctypes.c_int, ctypes.c_void_p]
     lib.myt_nms_suppress.restype = ctypes.c_int
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    # slots, N, S, seed, gate, scale, pc, ops, facs, bits, stats, out,
+    # out_bf16, stream
+    lib.myt_slot_aug.argtypes = [ptr, i32, i32, i32, ptr, ptr, ptr, ptr, ptr, ptr,
+                                 ptr, ptr, i32, ptr]
+    lib.myt_slot_aug.restype = ctypes.c_int
+    # slots, B, T, S, seed, gate, scale, pc, ops, facs, bits, src_rect,
+    # dst_rect, fill_rect, fill_color, fill_from_mean, flip, active, stats,
+    # out_h, out_w, out, stream
+    lib.myt_aug_compose.argtypes = [ptr, i32, i32, i32, i32, ptr, ptr, ptr, ptr, ptr,
+                                    ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr,
+                                    i32, i32, ptr, ptr]
+    lib.myt_aug_compose.restype = ctypes.c_int
     return lib

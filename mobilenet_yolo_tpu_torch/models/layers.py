@@ -13,6 +13,8 @@ Flax infers input widths at trace time; torch needs them at construction,
 so every block takes ``in_features``. Flax pads by the integer
 ``kernel // 2`` (``layers.py:79``), which is symmetric, so torch
 ``padding=kernel // 2`` is the same convolution at stride 1 and 2.
+Every block's BatchNorm is ``BatchNorm2d`` below, which keeps flax's
+train-mode running-variance update.
 """
 
 from __future__ import annotations
@@ -44,6 +46,32 @@ ACTIVATIONS: dict[str, Callable[[torch.Tensor], torch.Tensor]] = {
 }
 
 
+class BatchNorm2d(nn.BatchNorm2d):
+    """``nn.BatchNorm2d`` whose train-mode update stores the *biased* batch
+    variance in ``running_var``, as flax's ``nn.BatchNorm`` does.
+
+    Both frameworks normalize a training batch with the biased variance,
+    but torch moves ``running_var`` toward the unbiased one, n/(n-1) larger
+    (n = N*H*W per channel). Scaling the old value by n/(n-1) before torch's
+    update and the result by (n-1)/n after it turns ``(1-m) old + m
+    unbiased`` into ``(1-m) old + m biased`` for any momentum ``m``: two
+    elementwise launches per layer and step. The state-dict keys are
+    torch's, so ``convert.py`` and ``strict=True`` loads are unchanged.
+    """
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        n = x.numel() // x.shape[1]
+        if not (self.training and self.track_running_stats) or n < 2:
+            return super().forward(x)
+        with torch.no_grad():
+            self.running_var.mul_(n / (n - 1))
+        out = super().forward(x)
+        # a new buffer, not an in-place edit: autograd saved this one
+        with torch.no_grad():
+            self.running_var = self.running_var * ((n - 1) / n)
+        return out
+
+
 def _kaiming_out_(weight: torch.Tensor, generator: torch.Generator | None) -> None:
     """flax ``variance_scaling(2.0, "fan_out", "truncated_normal")``.
 
@@ -72,8 +100,8 @@ class ConvBNAct(nn.Module):
                               padding=kernel // 2,
                               groups=in_features if depthwise else 1,
                               bias=False, device=device, dtype=dtype)
-        self.bn = nn.BatchNorm2d(features, eps=BN_EPS, momentum=BN_MOMENTUM,
-                                 device=device, dtype=dtype)
+        self.bn = BatchNorm2d(features, eps=BN_EPS, momentum=BN_MOMENTUM,
+                              device=device, dtype=dtype)
         self.act = ACTIVATIONS[act]
         _kaiming_out_(self.conv.weight, generator)
 

@@ -15,7 +15,7 @@ import numpy as np
 import torch
 import yaml
 
-from mobilenet_yolo_tpu_torch.convert import load_flax_variables
+from mobilenet_yolo_tpu_torch.convert import flax_to_state_dict, load_flax_variables
 
 REPO = Path(__file__).resolve().parent.parent
 VOC_CONFIG = REPO / "mobilenet_yolo_tpu" / "configs" / "voc" / "config.yaml"
@@ -84,3 +84,59 @@ def to_nchw(x: np.ndarray) -> torch.Tensor:
 
 def to_nhwc(t: torch.Tensor) -> np.ndarray:
     return t.detach().permute(0, 2, 3, 1).numpy()
+
+
+# the small YOLO head config the JAX package's own train tests use
+# (tests/test_pallas_aug.py): 3 classes, two heads of 3 anchors
+SMALL_YOLO_CONFIG = {
+    "iou_weighting": 0.02,
+    "normalize": {"mean": [0.5] * 3, "std": [1.0] * 3},
+    "yolo": {
+        "num_classes": 3, "num_anchors": 3,
+        "ignore_thresh": [0.6, 0.55], "iou_thresh": 0.55,
+        "anchors": [[18, 22], [24, 24], [30, 28], [6, 8], [10, 12], [14, 10]],
+        "mask": [[0, 1, 2], [3, 4, 5]],
+    },
+}
+
+
+def padded_gt(rng: np.random.Generator, n_gt, t: int, num_classes: int = 3):
+    """(B, T, 5) GT rows (label 1-indexed, cx, cy, w, h) with random
+    garbage, never zeros, in the padded rows past ``n_gt``."""
+    b = len(n_gt)
+    gt = np.zeros((b, t, 5), np.float32)
+    gt[..., 0] = rng.integers(1, num_classes + 1, (b, t))
+    gt[..., 1:3] = rng.uniform(0.1, 0.9, (b, t, 2))
+    gt[..., 3:5] = rng.uniform(0.05, 0.6, (b, t, 2))
+    return gt, np.asarray(n_gt, np.int32)
+
+
+def geometry_batch(rng: np.random.Generator, b: int, s: int) -> dict:
+    """A ``Loader(device_geometry=True)``-contract batch from the host
+    planner, noise gates off: even images single-tile, odd ones 4-tile
+    mosaics (mean fills, flips, crops)."""
+    from mobilenet_yolo_tpu.data.geometry import GeometryPlanner
+    from mobilenet_yolo_tpu.train.step import GEOMETRY_BATCH_KEYS
+
+    planner = GeometryPlanner(stage_size=s, apply_noise=False)
+    plans = []
+    for i in range(b):
+        sources = [(rng.integers(0, 255, (40, 50, 3), np.uint8),
+                    np.asarray([[5, 5, 30, 30]], np.float32), np.float32([1.0]),
+                    np.float32([0.0])) for _ in range(1 if i % 2 == 0 else 4)]
+        plans.append(planner.plan_group(sources, rng))
+    batch = {k: np.stack([getattr(p, k) for p in plans]) for k in GEOMETRY_BATCH_KEYS}
+    batch["gt"] = np.zeros((b, 8, 5), np.float32)
+    batch["n_gt"] = np.zeros((b,), np.int32)
+    for i, p in enumerate(plans):
+        rows = p.labels[:8]
+        batch["gt"][i, :len(rows)] = rows[:, :5]
+        batch["n_gt"][i] = len(rows)
+    return batch
+
+
+def state_dict_of(collection: str, tree: dict) -> dict:
+    """A JAX ``params`` / ``batch_stats`` (or gradient) tree as numpy arrays
+    under the port's state-dict keys."""
+    tree = jax.tree_util.tree_map(np.asarray, tree)
+    return {k: v.numpy() for k, v in flax_to_state_dict({collection: tree}).items()}

@@ -1,4 +1,5 @@
-"""The port on the card: the CUDA NMS kernel against its plain twin.
+"""The port on the card: each CUDA kernel against its plain twin, and the
+geometry train step in each augmentation mode.
 
 Every test here needs an NVIDIA GPU and ``nvcc`` (the kernel builds from
 ``mobilenet_yolo_tpu_torch/csrc/`` at first use) and skips elsewhere. The
@@ -7,7 +8,8 @@ has only PyTorch; the repository's ``conftest.py`` imports JAX, hence:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -q
 
-The scan is boolean logic, so the kernel must equal the twin bit for bit.
+The scan is boolean logic, so the NMS kernel must equal its twin bit for
+bit; the augmentation kernels' tolerances are stated beside them.
 """
 
 import numpy as np
@@ -15,9 +17,12 @@ import pytest
 import torch
 
 from mobilenet_yolo_tpu_torch.eval import make_predict_fn
+from mobilenet_yolo_tpu_torch.kernels.aug_compose import aug_compose, aug_compose_reference
 from mobilenet_yolo_tpu_torch.kernels.nms_suppress import suppress, suppress_reference
 from mobilenet_yolo_tpu_torch.models import build_model
+from mobilenet_yolo_tpu_torch.kernels.slot_aug import slot_aug, slot_aug_reference
 from mobilenet_yolo_tpu_torch.ops.nms import batched_nms
+from mobilenet_yolo_tpu_torch.train.synthetic import random_geometry_batch
 
 pytestmark = pytest.mark.cuda
 
@@ -115,3 +120,155 @@ def test_predict_cuda_matches_cpu(cuda):
     np.testing.assert_array_equal(keep.cpu().numpy(), keep_cpu)
     np.testing.assert_allclose(dets.cpu().numpy()[keep_cpu], dets_cpu.numpy()[keep_cpu],
                                atol=1e-6, rtol=1e-5)
+
+
+# ------------------------------------------------ the augmentation kernels
+
+# kernel vs twin on bf16 output in [0, 255]: both compute in float32 and
+# round once, so a few ulp of float32 may tip a rounding: at most one bf16
+# spacing (1.0 in [128, 256)), and rarely
+AUG_MAX_ERR = 1.0
+AUG_MEAN_ERR = 0.05
+
+
+def _aug_batch(seed, b, s):
+    """A synthetic batch with noise on every active slot (the loader gates
+    a quarter), so each kernel test draws noise on both sides."""
+    rng = np.random.default_rng(seed)
+    batch = random_geometry_batch(rng, b, s)
+    active = batch["active"]
+    batch["noise_gate"] = active.copy()
+    batch["noise_scale"] = np.where(active, rng.uniform(0.0, 0.03 * 255.0, active.shape),
+                                    0.0).astype(np.float32)
+    batch["noise_per_channel"] = active & (rng.random(active.shape) < 0.3)
+    return {k: torch.from_numpy(v) for k, v in batch.items()}
+
+
+def _slot_args(g, device):
+    n = g["slots"].shape[0] * g["slots"].shape[1]
+    s = g["slots"].shape[2]
+    return (g["slots"].reshape(n, s, s, 3).to(device), 7,
+            *(g[k].reshape(n, *g[k].shape[2:]).to(device)
+              for k in ("noise_gate", "noise_scale", "noise_per_channel", "jitter_op",
+                        "jitter_factor")))
+
+
+def _assert_aug_close(got, want):
+    d = (got.float() - want.float()).abs()
+    assert float(d.max()) <= AUG_MAX_ERR and float(d.mean()) < AUG_MEAN_ERR, \
+        (float(d.max()), float(d.mean()))
+
+
+@pytest.mark.parametrize("b,s,dtype", [(4, 352, torch.bfloat16), (2, 416, torch.bfloat16),
+                                       (3, 34, torch.float32)])
+def test_slot_aug_kernel_matches_twin(cuda, b, s, dtype):
+    args = _slot_args(_aug_batch(b + s, b, s), cuda)
+    before = slot_aug.launches
+    got = slot_aug(*args, dtype=dtype)
+    torch.cuda.synchronize()
+    assert slot_aug.launches == before + 1 and got.dtype == dtype
+    want = slot_aug_reference(*args, dtype=dtype)
+    if dtype == torch.bfloat16:
+        _assert_aug_close(got, want)
+    else:  # float32 out: only float32 rounding differs
+        torch.testing.assert_close(got, want, atol=1e-2, rtol=0)
+
+
+def test_slot_aug_kernel_negative_hue_and_debug_bits(cuda):
+    """Floor-mod on negative hue operands, and the injected-bits seam."""
+    n, s = 4, 64
+    rng = np.random.default_rng(5)
+    slots = torch.from_numpy(rng.integers(0, 256, (n, s, s, 3), dtype=np.uint8)).to(cuda)
+    ops = torch.tensor([[3, -1, -1, -1, -1], [3, 0, -1, -1, -1], [1, 3, 4, -1, -1],
+                        [2, 3, -1, -1, -1]], dtype=torch.int32, device=cuda)
+    facs = torch.tensor([[-0.07, 1, 1, 1, 1], [-0.01, 1.3, 1, 1, 1], [0.6, -0.05, 0.8, 1, 1],
+                         [1.4, 0.06, 1, 1, 1]], device=cuda)
+    bits = torch.from_numpy(rng.integers(0, 2 ** 32, (2, n, 3, s // 2, s), dtype=np.uint64)
+                            .astype(np.uint32).view(np.int32)).to(cuda)
+    plan = (torch.tensor([True, False, True, True], device=cuda), torch.full((n,), 6.0, device=cuda),
+            torch.tensor([True, False, False, True], device=cuda), ops, facs)
+    got = slot_aug(slots, 3, *plan, dtype=torch.float32, debug_bits=bits)
+    want = slot_aug_reference(slots, 3, *plan, dtype=torch.float32, debug_bits=bits)
+    torch.testing.assert_close(got, want, atol=1e-2, rtol=0)
+    noiseless = slot_aug_reference(slots, 3, torch.zeros_like(plan[0]), *plan[1:],
+                                   dtype=torch.float32)
+    assert not torch.equal(got, noiseless)
+
+
+def test_slot_aug_kernel_noise_statistics(cuda):
+    """Mid-grey slots, noise on, no program: over all slots the added field
+    has mean ~0 (|m| < 0.02, ~10 standard errors) and std ~scale (within
+    0.5%); per slot |m| < 0.2 and std within 2% (a shared-plane slot draws
+    124k values: standard error 0.034); seeds decorrelate."""
+    n, s = 8, 352
+    slots = torch.full((n, s, s, 3), 128, dtype=torch.uint8, device=cuda)
+    plan = (torch.ones(n, dtype=torch.bool, device=cuda), torch.full((n,), 12.0, device=cuda),
+            torch.arange(n, device=cuda) % 2 == 0,
+            torch.full((n, 5), -1, dtype=torch.int32, device=cuda), torch.ones(n, 5, device=cuda))
+    delta = slot_aug(slots, 11, *plan, dtype=torch.float32) - 128.0
+    assert abs(float(delta.mean())) < 0.02 and abs(float(delta.std()) - 12.0) < 0.06
+    for i in range(n):
+        assert abs(float(delta[i].mean())) < 0.2 and abs(float(delta[i].std()) - 12.0) < 0.24
+    other = slot_aug(slots, 12, *plan, dtype=torch.float32) - 128.0
+    corr = torch.corrcoef(torch.stack([delta[0].flatten(), other[0].flatten()]))[0, 1]
+    assert abs(float(corr)) < 0.01
+
+
+def _compose_args(g, device, seed=9):
+    return (g["slots"].to(device), seed,
+            *(g[k].to(device) for k in ("noise_gate", "noise_scale", "noise_per_channel",
+                                        "jitter_op", "jitter_factor", "src_rect", "dst_rect",
+                                        "fill_rect", "fill_color", "fill_from_mean", "flip",
+                                        "active")))
+
+
+@pytest.mark.parametrize("b,s,out_hw", [(4, 352, (352, 352)), (3, 416, (416, 416)),
+                                        (2, 64, (70, 50))])
+def test_aug_compose_kernel_matches_twin(cuda, b, s, out_hw):
+    args = _compose_args(_aug_batch(b * s, b, s), cuda)
+    before = aug_compose.launches
+    got = aug_compose(*args, out_hw)
+    torch.cuda.synchronize()
+    assert aug_compose.launches == before + 1
+    assert got.shape == (b, *out_hw, 3) and got.dtype == torch.bfloat16
+    _assert_aug_close(got, aug_compose_reference(*args, out_hw))
+
+
+def test_aug_compose_kernel_inactive_tiles_and_debug_bits(cuda):
+    """An image with every tile inactive comes out zero; injected bits
+    drive both sides' noise."""
+    g = _aug_batch(3, 2, 32)
+    g["active"][1] = False
+    n = 2 * 4
+    bits = torch.from_numpy(np.random.default_rng(4).integers(
+        0, 2 ** 32, (2, n, 3, 16, 32), dtype=np.uint64).astype(np.uint32).view(np.int32))
+    g["noise_gate"][:] = True
+    args = _compose_args(g, cuda)
+    got = aug_compose(*args, (48, 40), debug_bits=bits.to(cuda))
+    assert not got[1].any()
+    _assert_aug_close(got, aug_compose_reference(*args, (48, 40), debug_bits=bits.to(cuda)))
+
+
+@pytest.mark.parametrize("fused_aug", [None, True, "split", False])
+def test_geometry_step_runs_each_mode(cuda, fused_aug):
+    """One width-0.35 geometry step per mode on the card: the loss is
+    finite, the parameters move, and the mode's kernel launched once."""
+    from mobilenet_yolo_tpu_torch.models.mbv2_yolo import MBv2YOLO
+    from mobilenet_yolo_tpu_torch.train import (GEOMETRY_BATCH_KEYS, create_train_state,
+                                                make_geometry_train_step)
+
+    g = _aug_batch(1, 4, 64)
+    model = MBv2YOLO(num_classes=20, width_mult=0.35,
+                     generator=torch.Generator().manual_seed(0)).to(cuda)
+    before = model.backbone.stem.conv.weight.detach().clone()
+    step = make_geometry_train_step(model, {**VOC, "yolo": {
+        **VOC["yolo"], "ignore_thresh": [0.6, 0.56], "iou_thresh": 0.55}}, fused_aug=fused_aug)
+    counts = (slot_aug.launches, aug_compose.launches)
+    _, metrics = step(create_train_state(model), *(g[k].to(cuda) for k in GEOMETRY_BATCH_KEYS),
+                      g["gt"].to(cuda), g["n_gt"].to(cuda), 5, out_hw=(64, 64))
+    torch.cuda.synchronize()
+    assert np.isfinite(float(metrics["loss"]))
+    assert not torch.equal(before, model.backbone.stem.conv.weight)
+    full = fused_aug in (None, True)
+    assert (slot_aug.launches - counts[0], aug_compose.launches - counts[1]) == \
+        (int(fused_aug == "split"), int(full))
