@@ -32,9 +32,23 @@ Phases, one output line each (any failure raises and exits non-zero):
               once per step of its mode, and that the first float32 losses
               of the kernel modes agree with the plain ops' (noise on: every
               mode draws one noise stream from one seed).
-7. timing   — CUDA-event throughput at batch 128 (f32, bf16, u8), batch-1
-              latency, the train step per mode and dtype, and each kernel's
-              time beside its twin's.
+7. fused_kernels — the three fused-block kernels of the BatchNorm-folded
+              forward (``fused_stem_block0``, ``fused_inverted_residual_s2``,
+              ``fused_inverted_residual``) against their cuDNN twins, TF32
+              off, in float32 and bf16, at the batch-128 352x352 shape of
+              every backbone block, an unaligned width and odd output
+              widths.
+8. serve_folded — the same VOC model folded (``fold_batchnorm``) and served
+              through ``make_predict_fn``: batch 1 and 128 at 352x352 in
+              float32, uint8 normalize and bf16. Checks each request
+              launched the stem kernel once, the stride-2 kernel 4 times and
+              the stride-1 kernel 12 times, and that the folded model's
+              heads match the unfolded model's (init weights in float32 and
+              bf16, served weights in float32).
+9. timing   — CUDA-event throughput at batch 128 (f32, bf16, u8), unfolded
+              and folded, batch-1 latency, the train step per mode and
+              dtype, and each kernel's time beside its twin's and its bound
+              (each fused kernel at every block shape).
 
 The line before the last is the per-kernel JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX, yaml or PIL.
@@ -53,10 +67,12 @@ import torch
 
 from mobilenet_yolo_tpu_torch.eval import make_predict_fn
 from mobilenet_yolo_tpu_torch.kernels import _build
+from mobilenet_yolo_tpu_torch.kernels import fused_block as fb
 from mobilenet_yolo_tpu_torch.kernels.aug_compose import aug_compose, aug_compose_reference
 from mobilenet_yolo_tpu_torch.kernels.nms_suppress import suppress, suppress_reference
 from mobilenet_yolo_tpu_torch.kernels.slot_aug import slot_aug, slot_aug_reference
 from mobilenet_yolo_tpu_torch.models import build_model
+from mobilenet_yolo_tpu_torch.models.bn_fold import fold_batchnorm
 from mobilenet_yolo_tpu_torch.ops.nms import _suppression_matrix
 from mobilenet_yolo_tpu_torch.train import (GEOMETRY_BATCH_KEYS, create_train_state,
                                             make_geometry_train_step, random_geometry_batch)
@@ -122,7 +138,38 @@ KERNELS = {
                  "mobilenet_yolo_tpu/kernels/pallas_aug.py:216"),
     "aug_compose": ("mobilenet_yolo_tpu_torch/csrc/aug_compose.cu",
                     "mobilenet_yolo_tpu/kernels/pallas_aug.py:388"),
+    "fused_inverted_residual": ("mobilenet_yolo_tpu_torch/csrc/fused_block.cu",
+                                "mobilenet_yolo_tpu/kernels/pallas_fused.py:131"),
+    "fused_inverted_residual_s2": ("mobilenet_yolo_tpu_torch/csrc/fused_block.cu",
+                                   "mobilenet_yolo_tpu/kernels/pallas_fused.py:228"),
+    "fused_stem_block0": ("mobilenet_yolo_tpu_torch/csrc/fused_stem.cu",
+                          "mobilenet_yolo_tpu/kernels/pallas_fused.py:389"),
 }
+FUSED = {"fused_inverted_residual": fb.fused_inverted_residual,
+         "fused_inverted_residual_s2": fb.fused_inverted_residual_s2,
+         "fused_stem_block0": fb.fused_stem_block0}
+LAUNCH_COUNTERS = (suppress, slot_aug, aug_compose, *FUSED.values())
+# fused kernel vs twin, relative to the largest output. float32: only the
+# order of summation differs (the kernel sums the project over 32-channel
+# chunks; up to 960 terms at 6e-8 each is 5.8e-5 at worst). bf16: the twin
+# rounds the hidden tensor, the depthwise output and each conv's output to
+# bf16 (2^-9 relative each), the kernel only its output, and the two
+# outputs may then sit one bf16 spacing (2^-7 relative) apart
+FUSED_F32_REL_TOL = 1e-4
+FUSED_BF16_REL_TOL = 3e-2
+# folded and fused heads vs the unfolded model's on the served (calibrated)
+# weights in float32: the calibrated random network amplifies float32
+# rounding ~450-fold (2.7e-5 against float64), and folding rounds each
+# weight once more and the kernels sum in another order
+FOLD_F32_REL_TOL = 1e-3
+# per fused launch on the folded predict path, at the MobileNetV2 widths
+FUSED_PER_REQUEST = {"fused_stem_block0": 1, "fused_inverted_residual_s2": 4,
+                     "fused_inverted_residual": 12}
+# the card's peaks (NVIDIA H100 SXM data sheet): HBM bytes/s, float32
+# outside the tensor cores and dense bf16 tensor-core FLOP/s
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOPS = 67e12
+BF16_FLOPS = 989e12
 MODES = {"full": True, "split": "split", "plain": False}
 DTYPES = {"f32": None, "bf16": torch.bfloat16}
 
@@ -263,7 +310,8 @@ def phase_serve(device) -> tuple[int, dict]:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     rng = np.random.default_rng(SEED)
-    model = build_model(VOC_CONFIG, generator=torch.Generator().manual_seed(SEED))
+    # built on the CPU: the phase holds the card against a CPU copy
+    model = build_model(VOC_CONFIG, device="cpu", generator=torch.Generator().manual_seed(SEED))
     check_logits(model, torch.from_numpy(
         rng.normal(0.0, 1.0, (2, SIZE, SIZE, 3)).astype(np.float32)), device)
     calibrate_bn(model, torch.from_numpy(
@@ -419,7 +467,7 @@ def phase_train(device, batches: dict) -> tuple[dict, dict]:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     init = build_model(TRAIN_CONFIG, generator=torch.Generator().manual_seed(SEED))
-    init = init.to(device).to(memory_format=torch.channels_last)
+    init = init.to(memory_format=torch.channels_last)
     size, large = TRAIN_SIZES
     g, g_large = batches[size], batches[large]
     watch = ("backbone.stem.conv.weight", "yolo_headS32.out.weight", "backbone.stem.bn.running_mean",
@@ -472,6 +520,174 @@ def phase_train(device, batches: dict) -> tuple[dict, dict]:
     return launches, runs
 
 
+def bound_ms(flops: float, nbytes: float, flops_per_s: float = F32_FLOPS) -> tuple[float, str]:
+    """The least time the card could take: the larger of the operations
+    over the peak rate for their type and the bytes over HBM's rate."""
+    t_ops, t_bytes = flops / flops_per_s, nbytes / HBM_BYTES_PER_S
+    return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
+
+
+def fused_block_shapes(backbone, batch: int, size: int) -> list[tuple]:
+    """(blocks, kernel, x shape, hidden, cout, residual) of every fused
+    launch of the folded backbone at ``size``, one entry per distinct shape."""
+    b0 = backbone.block0
+    out = {("fused_stem_block0", (batch, size, size, 3), backbone.stem.conv.out_channels,
+            b0.project.conv.out_channels, False): ["stem+0"]}
+    h, c = size // 2, b0.project.conv.out_channels
+    for idx in range(1, backbone.num_blocks):
+        blk = getattr(backbone, f"block{idx}")
+        stride = blk.depthwise.conv.stride[0]
+        kernel = "fused_inverted_residual_s2" if stride == 2 else "fused_inverted_residual"
+        key = (kernel, (batch, h, h, c), blk.expand.conv.out_channels,
+               blk.project.conv.out_channels, blk.identity)
+        out.setdefault(key, []).append(f"block{idx}")
+        h, c = h // stride, blk.project.conv.out_channels
+    return [("/".join(names), *key) for key, names in out.items()]
+
+
+def fused_work(kernel: str, x_shape: tuple, ch: int, cout: int, elem: int) -> tuple[int, int]:
+    """FLOPs (the expand over every input pixel, as the Pallas kernels do
+    it) and bytes (each input and output once) of one fused launch."""
+    b, h, w, cin = x_shape
+    ho, wo = (h, w) if kernel == "fused_inverted_residual" else (h // 2, w // 2)
+    first, first_w = ((ho * wo * 27 * ch, 27 * ch) if kernel == "fused_stem_block0"
+                      else (h * w * cin * ch, cin * ch))
+    flops = 2 * b * (first + ho * wo * ch * (9 + cout))
+    nbytes = elem * (b * h * w * cin + b * ho * wo * cout + first_w + 9 * ch + ch * cout)
+    return flops, nbytes + 4 * (2 * ch + cout)
+
+
+def fused_args(gen: torch.Generator, kernel: str, x_shape: tuple, ch: int, cout: int, dtype,
+               device) -> list[torch.Tensor]:
+    """Seeded inputs, weights scaled so activations keep unit size."""
+    stem = kernel == "fused_stem_block0"
+    first, fan_in = ((3, 3, 3, ch), 27) if stem else ((x_shape[3], ch), x_shape[3])
+
+    def randn(*shape, scale=1.0):
+        return scale * torch.randn(shape, generator=gen, device=device)
+
+    args = [randn(*x_shape), randn(*first, scale=fan_in ** -0.5), randn(ch, scale=0.1),
+            randn(3, 3, ch, scale=1 / 3), randn(ch, scale=0.1), randn(ch, cout, scale=ch ** -0.5),
+            randn(cout, scale=0.1)]
+    return [a.to(dtype) if a.dim() > 1 else a for a in args]
+
+
+def run_fused(kernel: str, args: list, residual: bool, twin: bool = False) -> torch.Tensor:
+    if kernel == "fused_stem_block0":
+        return fb.stem_block0_reference(*args) if twin else fb.fused_stem_block0(*args)
+    if kernel == "fused_inverted_residual_s2":
+        return (fb.inverted_residual_reference(*args, residual=False, stride=2) if twin
+                else fb.fused_inverted_residual_s2(*args))
+    return (fb.inverted_residual_reference(*args, residual=residual) if twin
+            else fb.fused_inverted_residual(*args, residual=residual))
+
+
+def phase_fused_kernels(device) -> tuple[dict, list]:
+    """Each fused kernel against its twin at every block shape of the served
+    model (batch 128, 352x352) and three small ragged cases, float32 and
+    bf16, TF32 off."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    backbone = build_model(VOC_CONFIG, generator=torch.Generator().manual_seed(SEED)).backbone
+    shapes = fused_block_shapes(backbone, BATCH, SIZE)
+    extra = [("unaligned_w11", "fused_inverted_residual", (4, 13, 11, 24), 144, 24, True),
+             ("odd_out_w11", "fused_inverted_residual_s2", (4, 22, 22, 16), 96, 24, False),
+             ("stem_30x22", "fused_stem_block0", (4, 30, 22, 3), 32, 16, False)]
+    gen = torch.Generator(device=device).manual_seed(SEED + 3)
+    worst = {k: 0.0 for k in FUSED}
+    cases = []
+    for blocks, kernel, x_shape, ch, cout, residual in shapes + extra:
+        for dt_name, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+            args = fused_args(gen, kernel, x_shape, ch, cout, dtype, device)
+            got = run_fused(kernel, args, residual)
+            want = run_fused(kernel, args, residual, twin=True)
+            torch.cuda.synchronize()
+            check(got.shape == want.shape and got.dtype == dtype, f"{blocks} {dt_name} output")
+            diff = float((got.float() - want.float()).abs().max())
+            rel = diff / float(want.float().abs().max())
+            tol = FUSED_F32_REL_TOL if dtype == torch.float32 else FUSED_BF16_REL_TOL
+            check(rel <= tol, f"{kernel} {blocks} {dt_name}: rel err {rel:.3g} <= {tol}")
+            if dtype == torch.float32:
+                worst[kernel] = max(worst[kernel], diff)
+            report("fused_kernels", blocks=blocks, kernel=kernel, dtype=dt_name,
+                   x=tuple(x_shape), hidden=ch, cout=cout, residual=residual,
+                   tile=fb.pick_tile({"fused_stem_block0": "stem",
+                                      "fused_inverted_residual_s2": "s2"}.get(kernel, "s1"),
+                                     got.shape[1], got.shape[2], x_shape[3], cout),
+                   max_abs_err=f"{diff:.3g}", rel_err=f"{rel:.3g}", tol=tol)
+            del got, want
+            if (blocks, kernel, x_shape, ch, cout, residual) in shapes:
+                cases.append((blocks, kernel, x_shape, ch, cout, dt_name, residual, args))
+    return worst, cases
+
+
+def phase_serve_folded(device) -> tuple[dict, dict]:
+    """The BatchNorm-folded serving path (``bench.py --fold-bn``'s): the VOC
+    model built on the card, folded, served through ``make_predict_fn``;
+    the fused kernels' launch counts read around the requests."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(SEED + 1)
+    model = build_model(VOC_CONFIG, generator=torch.Generator().manual_seed(SEED))
+    small = torch.from_numpy(rng.normal(0.0, 1.0, (2, SIZE, SIZE, 3)).astype(np.float32)).to(device)
+    # the init weights contract, so each comparison sees the rounding of a
+    # few layers (check_logits); float32 and bf16 against unfolded float32
+    model.eval().to(memory_format=torch.channels_last)
+    want = head_logits(model, small)
+    folded = fold_batchnorm(model)
+    for dt_name, dtype, tol in (("f32", None, F32_REL_TOL), ("bf16", torch.bfloat16, BF16_REL_TOL)):
+        got = head_logits(folded, small, dtype)
+        for key in ("out0", "out1"):
+            err = rel_err(got[key], want[key])
+            check(err <= tol, f"init weights, folded {dt_name} vs unfolded f32 {key}: {err:.3g}")
+            report("serve_folded", weights="init", head=key, dtype=dt_name,
+                   folded_vs_unfolded_f32_rel=f"{err:.3g}", tol=tol)
+
+    calibrate_bn(model, torch.from_numpy(
+        rng.normal(0.0, 1.0, (4, SIZE, SIZE, 3)).astype(np.float32)).to(device))
+    folded = fold_batchnorm(model)
+    predict = {"f32": make_predict_fn(folded, VOC_CONFIG),
+               "u8": make_predict_fn(folded, VOC_CONFIG, normalize=True),
+               "bf16": make_predict_fn(folded, VOC_CONFIG, dtype=torch.bfloat16)}
+    gen = torch.Generator(device=device).manual_seed(SEED + 1)
+    x128 = torch.randn((BATCH, SIZE, SIZE, 3), generator=gen, device=device)
+    u8 = torch.randint(0, 256, (BATCH, SIZE, SIZE, 3), generator=gen, device=device,
+                       dtype=torch.uint8)
+    val_conf = torch.tensor(VAL_CONF, device=device)
+    requests = [("f32_b1", "f32", x128[:1].clone()), ("f32_b128", "f32", x128),
+                ("u8_b128", "u8", u8), ("bf16_b128", "bf16", x128)]
+
+    # the main path: every request through make_predict_fn on the folded model
+    for counted in LAUNCH_COUNTERS:
+        counted.launches = 0
+    results = {name: predict[mode](images, val_conf) for name, mode, images in requests}
+    torch.cuda.synchronize()
+    launches = {name: f.launches for name, f in FUSED.items()}
+    expected = {name: n * len(requests) for name, n in FUSED_PER_REQUEST.items()}
+    check(launches == expected, f"fused launches {launches} == {expected}")
+    check(suppress.launches == len(requests), "suppress launched once per folded request")
+    report("serve_folded", requests=len(requests), launches=launches,
+           suppress_launches=suppress.launches)
+    for name, _, images in requests:
+        dets, keep = results[name]
+        valid = dets[..., 4] > val_conf
+        check(dets.shape[:2] == keep.shape and dets.shape[0] == images.shape[0],
+              f"{name} output shapes")
+        check(bool(torch.isfinite(dets).all()), f"{name} detections finite")
+        check(0 < int(keep.sum()) < int(valid.sum()), f"{name}: NMS kept some and cut some")
+        report("serve_folded", request=name, kept=int(keep.sum()), valid=int(valid.sum()))
+
+    # the served weights: folded-and-fused heads against the unfolded model
+    want, got = head_logits(model, small), head_logits(folded, small)
+    for key in ("out0", "out1"):
+        err = rel_err(got[key], want[key])
+        check(err <= FOLD_F32_REL_TOL, f"served weights, folded vs unfolded f32 {key}: {err:.3g}")
+        report("serve_folded", weights="calibrated", head=key, dtype="f32",
+               max_abs=f"{float(want[key].abs().max()):.4g}",
+               folded_vs_unfolded_rel=f"{err:.3g}", tol=FOLD_F32_REL_TOL)
+    return launches, {"model": folded, "predict": predict, "x128": x128, "u8": u8}
+
+
 def phase_timing(device, smi: str, state: dict) -> dict:
     predict, val_conf = state["predict"], state["val_conf"]
     model, x128 = state["model"], state["x128"]
@@ -487,6 +703,16 @@ def phase_timing(device, smi: str, state: dict) -> dict:
     for mode, dtype in (("f32", None), ("bf16", torch.bfloat16)):
         ms = cuda_ms(lambda: head_logits(model, x128, dtype), iters=20)
         report("timing", what=f"forward_only_b{BATCH}_{mode}", ms_per_batch=f"{ms:.3f}",
+               card=f"'{smi}'")
+
+    fold = state["folded"]
+    for mode, images in (("f32", x128), ("bf16", x128), ("u8", fold["u8"])):
+        ms = cuda_ms(lambda: fold["predict"][mode](images, val_conf), iters=20)
+        report("timing", what=f"folded_predict_b{BATCH}_{mode}", ms_per_batch=f"{ms:.3f}",
+               img_per_s=f"{BATCH * 1000.0 / ms:.1f}", card=f"'{smi}'")
+    for mode, dtype in (("f32", None), ("bf16", torch.bfloat16)):
+        ms = cuda_ms(lambda: head_logits(fold["model"], x128, dtype), iters=20)
+        report("timing", what=f"folded_forward_only_b{BATCH}_{mode}", ms_per_batch=f"{ms:.3f}",
                card=f"'{smi}'")
 
     lat = []
@@ -505,7 +731,9 @@ def phase_timing(device, smi: str, state: dict) -> dict:
     times = {}
     kernel_ms = cuda_ms(lambda: suppress(over, valid), iters=100, warmup=5)
     plain_ms = cuda_ms(lambda: suppress_reference(over, valid), iters=5)
-    times["nms_suppress"] = {"ms": kernel_ms, "plain_ms": plain_ms}
+    times["nms_suppress"] = {"ms": kernel_ms, "plain_ms": plain_ms, "library_ms": None}
+    times["nms_suppress"]["bound_ms"], times["nms_suppress"]["bound_by"] = bound_ms(
+        0, 4 * over.numel() + 4 * valid.numel() + valid.numel())  # over, valid in; keep out
     report("timing", what="suppress_b128_k256", kernel_ms=f"{kernel_ms:.4f}",
            plain_ms=f"{plain_ms:.4f}", card=f"'{smi}'")
 
@@ -514,13 +742,20 @@ def phase_timing(device, smi: str, state: dict) -> dict:
     args = slot_args(g, AUG_SEED)
     kernel_ms = cuda_ms(lambda: slot_aug(*args), iters=20)
     plain_ms = cuda_ms(lambda: slot_aug_reference(*args, dtype=torch.bfloat16), iters=3)
-    times["slot_aug"] = {"ms": kernel_ms, "plain_ms": plain_ms}
+    times["slot_aug"] = {"ms": kernel_ms, "plain_ms": plain_ms, "library_ms": None}
+    n_slots = args[0].shape[0]  # u8 slots in, bf16 planar slots out; plans are bytes
+    times["slot_aug"]["bound_ms"], times["slot_aug"]["bound_by"] = bound_ms(
+        0, n_slots * size * size * 3 * (1 + 2))
     report("timing", what=f"slot_aug_n{TRAIN_BATCH * 4}_s{size}", kernel_ms=f"{kernel_ms:.4f}",
            plain_ms=f"{plain_ms:.4f}", card=f"'{smi}'")
     args = compose_args(g, AUG_SEED)
     kernel_ms = cuda_ms(lambda: aug_compose(*args, (size, size)), iters=20)
     plain_ms = cuda_ms(lambda: aug_compose_reference(*args, (size, size)), iters=3)
-    times["aug_compose"] = {"ms": kernel_ms, "plain_ms": plain_ms}
+    times["aug_compose"] = {"ms": kernel_ms, "plain_ms": plain_ms, "library_ms": None}
+    # the active slots' u8 pixels in, the bf16 images out
+    active = int(g["active"].sum())
+    times["aug_compose"]["bound_ms"], times["aug_compose"]["bound_by"] = bound_ms(
+        0, active * size * size * 3 + TRAIN_BATCH * size * size * 3 * 2)
     report("timing", what=f"aug_compose_b{TRAIN_BATCH}_s{size}", kernel_ms=f"{kernel_ms:.4f}",
            plain_ms=f"{plain_ms:.4f}", card=f"'{smi}'")
 
@@ -530,6 +765,38 @@ def phase_timing(device, smi: str, state: dict) -> dict:
         report("timing", what=f"train_step_b{TRAIN_BATCH}_{size}_{mode_name}_{dt_name}",
                ms_per_step=f"{step_ms:.3f}", img_per_s=f"{TRAIN_BATCH * 1000.0 / step_ms:.1f}",
                tf32=False, card=f"'{smi}'")
+
+    # each fused kernel at every block shape of the folded b128 predict,
+    # beside its twin (the cuDNN three-conv chain, channels_last, TF32 off:
+    # also the library yardstick) and its bound; float32 bounds use the
+    # float32 rate outside the tensor cores, bf16 ones the bf16
+    # tensor-core rate
+    for name in FUSED:
+        times[name] = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0,
+                       "ops_ms": 0.0, "bytes_ms": 0.0}
+    for blocks, kernel, x_shape, ch, cout, dt_name, residual, args in state["fused_cases"]:
+        n = len(blocks.split("/"))
+        kernel_ms = cuda_ms(lambda: run_fused(kernel, args, residual), iters=10)
+        twin_ms = cuda_ms(lambda: run_fused(kernel, args, residual, twin=True), iters=10)
+        elem = 4 if dt_name == "f32" else 2
+        flops, nbytes = fused_work(kernel, x_shape, ch, cout, elem)
+        rate = F32_FLOPS if dt_name == "f32" else BF16_FLOPS
+        bound, bound_by = bound_ms(flops, nbytes, rate)
+        report("timing", what=f"{kernel}_{blocks}_b{BATCH}_{dt_name}", kernel_ms=f"{kernel_ms:.4f}",
+               twin_ms=f"{twin_ms:.4f}", bound_ms=f"{bound:.4f}", bound_by=bound_by,
+               gflop=f"{flops / 1e9:.2f}", mb=f"{nbytes / 1e6:.1f}", launches_per_predict=n,
+               card=f"'{smi}'")
+        if dt_name == "f32":  # the JSON line: float32 time per b128 predict
+            t = times[kernel]
+            t["ms"] += n * kernel_ms
+            t["plain_ms"] += n * twin_ms
+            t["library_ms"] += n * twin_ms
+            t["bound_ms"] += n * bound
+            t["ops_ms"] += n * flops / rate * 1e3
+            t["bytes_ms"] += n * nbytes / HBM_BYTES_PER_S * 1e3
+    for name in FUSED:
+        t = times[name]
+        t["bound_by"] = "operations" if t.pop("ops_ms") >= t.pop("bytes_ms") else "bytes"
     return times
 
 
@@ -544,11 +811,17 @@ def main() -> None:
     train_launches, state["train_runs"] = phase_train(device, batches)
     launches.update(train_launches)
     state["batches"] = batches
+    fused_errs, state["fused_cases"] = phase_fused_kernels(device)
+    max_err.update(fused_errs)
+    fused_launches, state["folded"] = phase_serve_folded(device)
+    launches.update(fused_launches)
     times = phase_timing(device, smi, state)
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda", "source": source, "replaces": replaces,
-        "launches": launches[name], "max_abs_err": max_err[name], "ms": times[name]["ms"],
-        "plain_ms": times[name]["plain_ms"]} for name, (source, replaces) in KERNELS.items()]}))
+        "launches": launches[name], "max_abs_err": max_err[name],
+        **{key: times[name][key] for key in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                             "library_ms")}}
+        for name, (source, replaces) in KERNELS.items()]}))
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

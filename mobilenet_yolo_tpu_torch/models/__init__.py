@@ -14,13 +14,18 @@ from mobilenet_yolo_tpu_torch.models.mobilenetv2 import MobileNetV2  # noqa: F40
 
 
 def build_model(config: dict, backbone: str = "mbv2", dtype=None, *,
-                device=None, generator: torch.Generator | None = None):
+                device="cuda", generator: torch.Generator | None = None):
     """Factory keyed on the model-yaml dict (same contract as the JAX
     ``build_model``): ``yolo.num_classes``/``num_anchors``, the optional
     ``seg.num_classes`` head and the ``prune:`` width overrides.
 
-    ``dtype``/``device`` place the parameters; ``generator`` seeds the init.
-    Serving in bf16 is ``make_predict_fn(..., dtype=torch.bfloat16)``.
+    The model is placed on ``device``, the card unless the caller asks for
+    the CPU (``device="cpu"``); without a card the default raises.
+    ``generator`` seeds the init, which is drawn on the generator's own
+    device and then moved, so one seed gives the same weights on the CPU
+    and on the card. ``dtype`` sets the parameters' type. Serving in bf16
+    is ``make_predict_fn(..., dtype=torch.bfloat16)``; BatchNorm-folded
+    serving is ``make_predict_fn(models.bn_fold.fold_batchnorm(model), ...)``.
     """
     num_classes = config["yolo"]["num_classes"]
     num_anchors = config["yolo"]["num_anchors"]
@@ -29,13 +34,19 @@ def build_model(config: dict, backbone: str = "mbv2", dtype=None, *,
     hidden = prune_cfg.get("backbone_hidden")
     hidden = tuple(hidden) if hidden else None
     head = prune_cfg.get("backbone_head")
-    if backbone == "mbv2":
-        return MBv2YOLO(num_classes=num_classes, num_anchors=num_anchors,
-                        seg_num_classes=seg_classes, backbone_hidden=hidden,
-                        backbone_head=head, device=device, dtype=dtype,
-                        generator=generator)
     if backbone in ("mbv3", "mbv3_macc"):
         raise NotImplementedError(
             f"backbone {backbone!r} is not ported yet "
             "(ROADMAP.md, Queue 1 item 8: MobileNetV3 graphs)")
-    raise ValueError(f"unknown backbone {backbone!r}")
+    if backbone != "mbv2":
+        raise ValueError(f"unknown backbone {backbone!r}")
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("build_model places the model on the card by default and no CUDA "
+                           "device is available; pass device='cpu' to build it on the CPU")
+    init_device = generator.device if generator is not None else device
+    model = MBv2YOLO(num_classes=num_classes, num_anchors=num_anchors,
+                     seg_num_classes=seg_classes, backbone_hidden=hidden,
+                     backbone_head=head, device=init_device, dtype=dtype,
+                     generator=generator)
+    return model.to(device)

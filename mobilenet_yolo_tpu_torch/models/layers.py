@@ -87,7 +87,14 @@ def _kaiming_out_(weight: torch.Tensor, generator: torch.Generator | None) -> No
 
 
 class ConvBNAct(nn.Module):
-    """conv (no bias) -> batchnorm -> activation (``layers.py:62-93``)."""
+    """conv (no bias) -> batchnorm -> activation (``layers.py:62-93``).
+
+    ``folded`` is set by ``models/bn_fold.py:fold_batchnorm``: the BN is then
+    the identity with ``bn.bias`` as the conv's bias, so the block runs as
+    one biased conv, in eval mode only.
+    """
+
+    folded = False
 
     def __init__(self, in_features: int, features: int, kernel: int = 3,
                  stride: int = 1, depthwise: bool = False, act: str = "leaky",
@@ -106,7 +113,19 @@ class ConvBNAct(nn.Module):
         _kaiming_out_(self.conv.weight, generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.folded:
+            check_inference(self)
+            conv = self.conv
+            return self.act(F.conv2d(x, conv.weight, self.bn.bias, conv.stride, conv.padding,
+                                     groups=conv.groups))
         return self.act(self.bn(self.conv(x)))
+
+
+def check_inference(module: nn.Module) -> None:
+    """BatchNorm-folded weights are for inference: train mode raises."""
+    if module.training:
+        raise RuntimeError("a BatchNorm-folded model runs in eval mode only; its folded "
+                           "weights are for inference (call .eval())")
 
 
 class InvertedResidual(nn.Module):

@@ -3,6 +3,15 @@
 Port of ``mobilenet_yolo_tpu/models/mobilenetv2.py:17-84``: a 3x3/2 stem,
 inverted-residual blocks ``block0``..``block16`` and a 1x1 ``head_conv``.
 ``forward`` returns both taps ``(c4 stride-16, c5 stride-32)``.
+
+A backbone that ``models/bn_fold.py:fold_batchnorm`` produced runs, in eval
+mode, its stem and blocks through the fused CUDA kernels
+(``kernels/fused_block.py``): ``stem`` + ``block0`` through
+``fused_stem_block0``, the stride-2 blocks through
+``fused_inverted_residual_s2`` and the others through
+``fused_inverted_residual`` (residual where the block is an identity).
+That is 1 + 4 + 12 = 17 launches per forward at the MobileNetV2 widths.
+``head_conv`` stays a cuDNN conv with the folded bias.
 """
 
 from __future__ import annotations
@@ -10,9 +19,15 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from mobilenet_yolo_tpu_torch.kernels.fused_block import (
+    fused_inverted_residual,
+    fused_inverted_residual_s2,
+    fused_stem_block0,
+)
 from mobilenet_yolo_tpu_torch.models.layers import (
     ConvBNAct,
     InvertedResidual,
+    check_inference,
     make_divisible,
 )
 
@@ -65,9 +80,59 @@ class MobileNetV2(nn.Module):
         self.head_conv = ConvBNAct(ch, self.c5_features, 1, act="relu6", **kw)
 
     def forward(self, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        if self.stem.folded:
+            return self._forward_fused(x)
         x = self.stem(x)
         for idx in range(self.num_blocks):
             x = getattr(self, f"block{idx}")(x)
             if idx + 1 == self.c4_blocks:
                 c4 = x  # stride 16
         return c4, self.head_conv(x)  # stride 32
+
+    def _forward_fused(self, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        """The folded forward through the fused kernels, in NHWC. Autocast
+        does not reach the kernels, so under it the activations and weights
+        are cast to its dtype here."""
+        check_inference(self)
+        dev = x.device.type
+        dtype = torch.get_autocast_dtype(dev) if torch.is_autocast_enabled(dev) else x.dtype
+        y = x.permute(0, 2, 3, 1).to(dtype).contiguous()  # no copy for channels_last input
+        y = fused_stem_block0(y, *_stem_weights(self.stem, self.block0, dtype))
+        for idx in range(1, self.num_blocks):
+            block = getattr(self, f"block{idx}")
+            weights = _block_weights(block, dtype)
+            if block.depthwise.conv.stride[0] == 2:
+                y = fused_inverted_residual_s2(y, *weights)
+            else:
+                y = fused_inverted_residual(y, *weights, residual=block.identity)
+            if idx + 1 == self.c4_blocks:
+                c4 = y
+        return c4.permute(0, 3, 1, 2), self.head_conv(y.permute(0, 3, 1, 2))
+
+
+def _weight(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    return t.to(dtype).contiguous()
+
+
+def _block_weights(block: InvertedResidual, dtype: torch.dtype) -> tuple:
+    """A folded block's weights in the kernels' layout: w1 (Cin, Ch), b1,
+    wdw (3, 3, Ch), bdw, w2 (Ch, Cout), b2."""
+    if block.expand is None:
+        raise ValueError("the fused blocks need an expand conv (expand ratio > 1)")
+    return (_weight(block.expand.conv.weight[:, :, 0, 0].t(), dtype), block.expand.bn.bias,
+            *_block_weights_tail(block, dtype))
+
+
+def _stem_weights(stem: ConvBNAct, block0: InvertedResidual, dtype: torch.dtype) -> tuple:
+    """k_stem (3, 3, 3, Ch) HWIO, b_stem, and block 0's wdw, bdw, w2, b2."""
+    if block0.expand is not None:
+        raise ValueError("the fused stem takes a block 0 without an expand conv")
+    return (_weight(stem.conv.weight.permute(2, 3, 1, 0), dtype), stem.bn.bias,
+            *_block_weights_tail(block0, dtype))
+
+
+def _block_weights_tail(block: InvertedResidual, dtype: torch.dtype) -> tuple:
+    """wdw (3, 3, Ch), bdw, w2 (Ch, Cout), b2."""
+    return (_weight(block.depthwise.conv.weight[:, 0].permute(1, 2, 0), dtype),
+            block.depthwise.bn.bias,
+            _weight(block.project.conv.weight[:, :, 0, 0].t(), dtype), block.project.bn.bias)

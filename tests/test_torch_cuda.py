@@ -1,5 +1,6 @@
-"""The port on the card: each CUDA kernel against its plain twin, and the
-geometry train step in each augmentation mode.
+"""The port on the card: each CUDA kernel against its plain twin, the
+geometry train step in each augmentation mode, and the BatchNorm-folded
+predict through the fused-block kernels.
 
 Every test here needs an NVIDIA GPU and ``nvcc`` (the kernel builds from
 ``mobilenet_yolo_tpu_torch/csrc/`` at first use) and skips elsewhere. The
@@ -9,7 +10,7 @@ has only PyTorch; the repository's ``conftest.py`` imports JAX, hence:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -q
 
 The scan is boolean logic, so the NMS kernel must equal its twin bit for
-bit; the augmentation kernels' tolerances are stated beside them.
+bit; the other kernels' tolerances are stated beside them.
 """
 
 import numpy as np
@@ -17,9 +18,11 @@ import pytest
 import torch
 
 from mobilenet_yolo_tpu_torch.eval import make_predict_fn
+from mobilenet_yolo_tpu_torch.kernels import fused_block as fb
 from mobilenet_yolo_tpu_torch.kernels.aug_compose import aug_compose, aug_compose_reference
 from mobilenet_yolo_tpu_torch.kernels.nms_suppress import suppress, suppress_reference
 from mobilenet_yolo_tpu_torch.models import build_model
+from mobilenet_yolo_tpu_torch.models.bn_fold import fold_batchnorm
 from mobilenet_yolo_tpu_torch.kernels.slot_aug import slot_aug, slot_aug_reference
 from mobilenet_yolo_tpu_torch.ops.nms import batched_nms
 from mobilenet_yolo_tpu_torch.train.synthetic import random_geometry_batch
@@ -103,7 +106,7 @@ def test_predict_cuda_matches_cpu(cuda):
     exp and sigmoid differ by a few ulp between the card and the CPU, and
     boxes reach a few image widths at 96x96: rtol 1e-5, atol 1e-6."""
     rng = np.random.default_rng(3)
-    model = build_model(VOC, generator=torch.Generator().manual_seed(0))
+    model = build_model(VOC, device="cpu", generator=torch.Generator().manual_seed(0))
     bns = [m for m in model.modules() if isinstance(m, torch.nn.BatchNorm2d)]
     for bn in bns:
         bn.momentum = None  # cumulative average: one pass sets the batch stats
@@ -272,3 +275,106 @@ def test_geometry_step_runs_each_mode(cuda, fused_aug):
     full = fused_aug in (None, True)
     assert (slot_aug.launches - counts[0], aug_compose.launches - counts[1]) == \
         (int(fused_aug == "split"), int(full))
+
+
+# --------------------------------------- the fused blocks of the folded model
+
+# kernel vs twin, relative to the largest output. float32: only the order
+# of summation differs (the kernel sums the project over 32-channel
+# chunks; up to 960 terms at 6e-8 each is 5.8e-5 at worst). bf16: the
+# twin rounds the hidden tensor, the depthwise output and each conv's
+# output to bf16 (2^-9 relative each), the kernel only its output, and the
+# two outputs may then sit one bf16 spacing (2^-7 relative) apart.
+FUSED_F32_REL_TOL = 1e-4
+FUSED_BF16_REL_TOL = 3e-2
+
+
+def _fused_args(seed, b, h, w, cin, ch, cout, dtype, device, stem=False):
+    """Weights scaled so activations keep unit size through each block."""
+    g = torch.Generator().manual_seed(seed)
+    first = (3, 3, 3, ch) if stem else (cin, ch)
+    fan_in = 27 if stem else cin
+    args = [torch.randn((b, h, w, 3 if stem else cin), generator=g),
+            torch.randn(first, generator=g) / fan_in ** 0.5, 0.1 * torch.randn(ch, generator=g),
+            torch.randn((3, 3, ch), generator=g) / 3.0, 0.1 * torch.randn(ch, generator=g),
+            torch.randn((ch, cout), generator=g) / ch ** 0.5, 0.1 * torch.randn(cout, generator=g)]
+    return [a.to(device, dtype if a.dim() > 1 else torch.float32) for a in args]
+
+
+def _assert_fused_close(got, want, dtype):
+    tol = FUSED_F32_REL_TOL if dtype == torch.float32 else FUSED_BF16_REL_TOL
+    err = float((got.float() - want.float()).abs().max() / want.float().abs().max())
+    assert err <= tol, (err, tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,stride,residual", [
+    ((2, 16, 24, 24, 144, 24), 1, True),     # aligned, hidden a multiple of the chunk
+    ((3, 13, 11, 24, 50, 24), 1, True),      # unaligned width and hidden width
+    ((2, 11, 11, 160, 960, 320), 1, False),  # block 16's widths, output width 11
+    ((2, 44, 44, 8, 48, 16), 2, False),      # ragged stride-2 tiles
+    ((3, 22, 22, 96, 576, 160), 2, False),   # block 13: 22 -> 11
+    ((1, 10, 6, 20, 70, 30), 2, False),      # channels off every multiple of 4
+])
+def test_fused_block_kernel_matches_twin(cuda, shape, stride, residual, dtype):
+    args = _fused_args(sum(shape), *shape, dtype, cuda)
+    wrapper = fb.fused_inverted_residual if stride == 1 else fb.fused_inverted_residual_s2
+    before = wrapper.launches
+    got = wrapper(*args, residual=residual) if stride == 1 else wrapper(*args)
+    torch.cuda.synchronize()
+    assert wrapper.launches == before + 1 and got.dtype == dtype
+    want = fb.inverted_residual_reference(*args, residual=residual, stride=stride)
+    assert got.shape == want.shape
+    _assert_fused_close(got, want, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(2, 32, 40, 3, 32, 16), (1, 30, 22, 3, 13, 6),
+                                   (2, 64, 64, 3, 40, 70)])
+def test_fused_stem_kernel_matches_twin(cuda, shape, dtype):
+    args = _fused_args(sum(shape), *shape, dtype, cuda, stem=True)
+    before = fb.fused_stem_block0.launches
+    got = fb.fused_stem_block0(*args)
+    torch.cuda.synchronize()
+    assert fb.fused_stem_block0.launches == before + 1 and got.dtype == dtype
+    want = fb.stem_block0_reference(*args)
+    assert got.shape == want.shape
+    _assert_fused_close(got, want, dtype)
+
+
+def test_fused_kernel_rejects_mixed_devices(cuda):
+    args = _fused_args(0, 1, 8, 8, 8, 16, 8, torch.float32, cuda)
+    args[1] = args[1].cpu()
+    with pytest.raises(ValueError, match="w1 on cpu"):
+        fb.fused_inverted_residual(*args)
+
+
+@pytest.mark.parametrize("dtype", [None, torch.bfloat16])
+def test_folded_predict_launches_the_fused_kernels(cuda, dtype):
+    """A folded VOC model on the card: each request launches the stem
+    kernel once, the stride-2 kernel 4 times and the stride-1 kernel 12
+    times, and its heads match the unfolded model's (init weights, which
+    contract, so the comparison sees the rounding of a few layers)."""
+    model = build_model(VOC, generator=torch.Generator().manual_seed(0))
+    folded = fold_batchnorm(model)
+    predict = make_predict_fn(folded, VOC, dtype=dtype)
+    images = torch.randn((2, 96, 96, 3), generator=torch.Generator().manual_seed(1)).to(cuda)
+    counts = _fused_counts()
+    for _ in range(2):
+        dets, keep = predict(images, torch.tensor(0.3, device=cuda))
+    torch.cuda.synchronize()
+    assert [a - b for a, b in zip(_fused_counts(), counts)] == [2, 8, 24]
+    assert bool(torch.isfinite(dets).all()) and keep.shape == (2, 135)  # (3*3 + 6*6) * 3
+    with torch.inference_mode(), torch.autocast("cuda", dtype=dtype, enabled=dtype is not None):
+        got = folded(images.permute(0, 3, 1, 2))
+    with torch.inference_mode():
+        want = model.eval()(images.permute(0, 3, 1, 2))
+    tol = 1e-4 if dtype is None else 5e-2
+    for key in want:
+        err = float((got[key].float() - want[key]).abs().max() / want[key].abs().max())
+        assert err <= tol, (key, err)
+
+
+def _fused_counts():
+    return [fb.fused_stem_block0.launches, fb.fused_inverted_residual_s2.launches,
+            fb.fused_inverted_residual.launches]

@@ -119,7 +119,7 @@ def test_mbv2_yolo_heads(variant, seg_variables):
         cfg = load_yaml(VOC_CONFIG)
         variables = _without_seg(seg_variables)
     want = jax_apply(jax_build_model(cfg), variables, x)
-    port = port_module(build_model(cfg), variables)
+    port = port_module(build_model(cfg, device="cpu"), variables)
     assert sum(p.numel() for p in port.parameters()) == sum(
         v.size for v in jax.tree_util.tree_leaves(variables["params"]))
     with torch.no_grad():
@@ -133,7 +133,7 @@ def test_mbv2_yolo_heads(variant, seg_variables):
 def test_full_voc_model_size():
     """4.97 M values in 334 flax leaves (params plus BN statistics) at the
     VOC contract, each leaf one torch state_dict entry."""
-    state = build_model(load_yaml(VOC_CONFIG)).state_dict()
+    state = build_model(load_yaml(VOC_CONFIG), device="cpu").state_dict()
     leaves = [v for k, v in state.items() if not k.endswith("num_batches_tracked")]
     assert len(leaves) == 334
     assert round(sum(v.numel() for v in leaves) / 1e6, 2) == 4.97

@@ -74,7 +74,7 @@ def test_predict_matches_jax(variant, seg_setup):
     want = jax_make_predict_fn(jax_model, cfg, normalize=normalize)(
         variables, jnp.asarray(images), jnp.float32(val_conf))
     want = [np.asarray(w) for w in want]
-    predict = make_predict_fn(port_module(build_model(cfg), variables), cfg,
+    predict = make_predict_fn(port_module(build_model(cfg, device="cpu"), variables), cfg,
                               normalize=normalize)
     got = [g.numpy() for g in predict(torch.from_numpy(images), torch.tensor(val_conf))]
 
@@ -93,7 +93,7 @@ def test_predict_bf16_close_to_f32(seg_setup):
     """bf16 autocast serving against float32 on the same weights: bf16 keeps
     8 bits of mantissa, so boxes and scores in [0, 1] move by ~1e-2."""
     cfg, variables = _plain(*seg_setup)
-    model = port_module(build_model(cfg), variables)
+    model = port_module(build_model(cfg, device="cpu"), variables)
     images, val_conf = torch.from_numpy(nhwc_input(8)), torch.tensor(0.3)
     dets32, _ = make_predict_fn(model, cfg)(images, val_conf)
     dets16, keep16 = make_predict_fn(model, cfg, dtype=torch.bfloat16)(images, val_conf)
