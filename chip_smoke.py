@@ -1,5 +1,5 @@
-"""Drive the PyTorch port's serving and training paths on one NVIDIA GPU and
-check them.
+"""Drive the PyTorch port's serving and training paths and its measurement
+tools on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py            # from the repository root; needs one card
 
@@ -45,7 +45,21 @@ Phases, one output line each (any failure raises and exits non-zero):
               the stride-1 kernel 12 times, and that the folded model's
               heads match the unfolded model's (init weights in float32 and
               bf16, served weights in float32).
-9. timing   — CUDA-event throughput at batch 128 (f32, bf16, u8), unfolded
+9. stem_probe — the staged stem roofline kernel (``stem_probe``, stages a,
+              b, c) driven through ``python -m
+              mobilenet_yolo_tpu_torch.tools.probe_stem_cuda`` as a user runs
+              it (a small check and the batch-128 352x352 bench, beside the
+              bound and, for c, the ``F.conv2d`` chain); checks its launches,
+              then each stage against its twin at a small shape, at S=18 (odd
+              S/2) and at 128x352.
+10. tools   — the measurement tools at reduced iterations: ``bench_train`` at
+              batch 32 float32, plain and ``--remat`` (the backward adds time
+              and at least doubles the FLOPs), one remat step against the
+              plain step (same loss, same BatchNorm buffers, one count each),
+              ``bench_geometry --stages --fused on`` at 416,
+              ``probe_aug_kernels`` and ``probe_stem``; checks they launched
+              the augmentation kernels.
+11. timing  — CUDA-event throughput at batch 128 (f32, bf16, u8), unfolded
               and folded, batch-1 latency, the train step per mode and
               dtype, and each kernel's time beside its twin's and its bound
               (each fused kernel at every block shape).
@@ -57,6 +71,7 @@ The line before the last is the per-kernel JSON record; the last line is
 from __future__ import annotations
 
 import copy
+import functools
 import json
 import statistics
 import subprocess
@@ -65,37 +80,25 @@ import time
 import numpy as np
 import torch
 
+from mobilenet_yolo_tpu_torch.config import VOC_CONFIG
 from mobilenet_yolo_tpu_torch.eval import make_predict_fn
 from mobilenet_yolo_tpu_torch.kernels import _build
 from mobilenet_yolo_tpu_torch.kernels import fused_block as fb
 from mobilenet_yolo_tpu_torch.kernels.aug_compose import aug_compose, aug_compose_reference
 from mobilenet_yolo_tpu_torch.kernels.nms_suppress import suppress, suppress_reference
 from mobilenet_yolo_tpu_torch.kernels.slot_aug import slot_aug, slot_aug_reference
+from mobilenet_yolo_tpu_torch.kernels.stem_probe import STAGES, stem_probe, stem_probe_reference
 from mobilenet_yolo_tpu_torch.models import build_model
 from mobilenet_yolo_tpu_torch.models.bn_fold import fold_batchnorm
 from mobilenet_yolo_tpu_torch.ops.nms import _suppression_matrix
+from mobilenet_yolo_tpu_torch.tools import (bench_geometry, bench_train, probe_aug_kernels,
+                                            probe_stem, probe_stem_cuda)
 from mobilenet_yolo_tpu_torch.train import (GEOMETRY_BATCH_KEYS, create_train_state,
-                                            make_geometry_train_step, random_geometry_batch)
+                                            make_geometry_train_step, make_train_step,
+                                            random_geometry_batch)
+from mobilenet_yolo_tpu_torch.utils.profiling import (BF16_FLOPS, F32_FLOPS, HBM_BYTES_PER_S,
+                                                      bound_ms, device_ms)
 
-# the VOC model contract of mobilenet_yolo_tpu/configs/voc/config.yaml
-VOC_CONFIG = {
-    "img_h": 352,
-    "img_w": 352,
-    "normalize": {"mean": [0.485, 0.456, 0.406], "std": [0.229, 0.224, 0.225]},
-    "yolo": {
-        "num_classes": 20,
-        "num_anchors": 3,
-        "anchors": [[143, 265], [153, 121], [280, 279], [20, 37], [49, 94], [73, 201]],
-        "mask": [[0, 1, 2], [3, 4, 5]],
-    },
-}
-# the training values of the same file
-TRAIN_CONFIG = {
-    **VOC_CONFIG,
-    "iou_weighting": 0.021830872589525777,
-    "yolo": {**VOC_CONFIG["yolo"], "ignore_thresh": [0.6076333316652263, 0.5623606200028424],
-             "iou_thresh": 0.5497280113447018},
-}
 SEED = 0
 BATCH = 128
 TRAIN_BATCH = 32
@@ -131,6 +134,20 @@ NOISE_SLOT_STD_REL = 2e-2
 # kernels round their images (full) or slots (split) to bf16, at most 0.5
 # of 255 per rounding
 AUG_MODE_LOSS_RTOL = 2e-2
+# stem probe kernel vs twin: ``probe_stem_cuda.tolerance``, one bf16
+# spacing of the largest output for stages a and b (thousands of floats
+# summed in another order, rounded once to bf16), 2^-8 of the largest
+# output for stage c (summed in the twin's order, bit-equal expected)
+STEM_SHAPES = ((4, 64), (3, 18), (BATCH, SIZE))  # (B, S): small, odd S/2, the bench shape
+STEM_ITERS = 20
+# remat vs plain first loss on the same weights and batch, float32 with
+# TF32 off: only the backward is scheduled differently
+REMAT_LOSS_RTOL = 1e-5
+# probe_stem's b and c folds against formulation a, all three bf16 cuDNN
+# convs of the same products summed in other orders: one bf16 rounding
+# may tip, at most 2^-7 of the largest output
+STEM_FOLD_REL_TOL = 2.0 ** -7
+TOOLS_ITERS = 3
 KERNELS = {
     "nms_suppress": ("mobilenet_yolo_tpu_torch/csrc/nms_suppress.cu",
                      "mobilenet_yolo_tpu/kernels/pallas_nms.py:59"),
@@ -144,11 +161,13 @@ KERNELS = {
                                    "mobilenet_yolo_tpu/kernels/pallas_fused.py:228"),
     "fused_stem_block0": ("mobilenet_yolo_tpu_torch/csrc/fused_stem.cu",
                           "mobilenet_yolo_tpu/kernels/pallas_fused.py:389"),
+    "stem_probe": ("mobilenet_yolo_tpu_torch/csrc/stem_probe.cu",
+                   "tools/probe_stem_pallas.py:126"),
 }
 FUSED = {"fused_inverted_residual": fb.fused_inverted_residual,
          "fused_inverted_residual_s2": fb.fused_inverted_residual_s2,
          "fused_stem_block0": fb.fused_stem_block0}
-LAUNCH_COUNTERS = (suppress, slot_aug, aug_compose, *FUSED.values())
+LAUNCH_COUNTERS = (suppress, slot_aug, aug_compose, *FUSED.values(), stem_probe)
 # fused kernel vs twin, relative to the largest output. float32: only the
 # order of summation differs (the kernel sums the project over 32-channel
 # chunks; up to 960 terms at 6e-8 each is 5.8e-5 at worst). bf16: the twin
@@ -165,11 +184,6 @@ FOLD_F32_REL_TOL = 1e-3
 # per fused launch on the folded predict path, at the MobileNetV2 widths
 FUSED_PER_REQUEST = {"fused_stem_block0": 1, "fused_inverted_residual_s2": 4,
                      "fused_inverted_residual": 12}
-# the card's peaks (NVIDIA H100 SXM data sheet): HBM bytes/s, float32
-# outside the tensor cores and dense bf16 tensor-core FLOP/s
-HBM_BYTES_PER_S = 3.35e12
-F32_FLOPS = 67e12
-BF16_FLOPS = 989e12
 MODES = {"full": True, "split": "split", "plain": False}
 DTYPES = {"f32": None, "bf16": torch.bfloat16}
 
@@ -189,18 +203,8 @@ def rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
     return float((got - want).abs().max() / want.abs().max())
 
 
-def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
-    """Mean device time per call, CUDA events around ``iters`` calls."""
-    for _ in range(warmup):
-        fn()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+# mean device time per call, CUDA events around the calls
+cuda_ms = functools.partial(device_ms, device="cuda")
 
 
 def phase_device() -> tuple[torch.device, str]:
@@ -466,7 +470,7 @@ def phase_train(device, batches: dict) -> tuple[dict, dict]:
     them."""
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    init = build_model(TRAIN_CONFIG, generator=torch.Generator().manual_seed(SEED))
+    init = build_model(VOC_CONFIG, generator=torch.Generator().manual_seed(SEED))
     init = init.to(memory_format=torch.channels_last)
     size, large = TRAIN_SIZES
     g, g_large = batches[size], batches[large]
@@ -481,7 +485,7 @@ def phase_train(device, batches: dict) -> tuple[dict, dict]:
         for mode_name, mode in MODES.items():
             model = copy.deepcopy(init)
             state = create_train_state(model)
-            step = make_geometry_train_step(model, TRAIN_CONFIG, fused_aug=mode, dtype=dtype)
+            step = make_geometry_train_step(model, VOC_CONFIG, fused_aug=mode, dtype=dtype)
             losses = []
             for i in range(TRAIN_STEPS):
                 state, metrics = step(state, *step_args(g, AUG_SEED + i), out_hw=(size, size))
@@ -518,13 +522,6 @@ def phase_train(device, batches: dict) -> tuple[dict, dict]:
            first_loss_plain=f"{first['plain']:.6f}", rel_full=f"{rel['full']:.3g}",
            rel_split=f"{rel['split']:.3g}", tol=AUG_MODE_LOSS_RTOL)
     return launches, runs
-
-
-def bound_ms(flops: float, nbytes: float, flops_per_s: float = F32_FLOPS) -> tuple[float, str]:
-    """The least time the card could take: the larger of the operations
-    over the peak rate for their type and the bytes over HBM's rate."""
-    t_ops, t_bytes = flops / flops_per_s, nbytes / HBM_BYTES_PER_S
-    return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
 
 
 def fused_block_shapes(backbone, batch: int, size: int) -> list[tuple]:
@@ -688,6 +685,104 @@ def phase_serve_folded(device) -> tuple[dict, dict]:
     return launches, {"model": folded, "predict": predict, "x128": x128, "u8": u8}
 
 
+def phase_stem_probe(device, smi: str) -> tuple[int, float, dict]:
+    """Kernel 7's path: the probe tool, as a user runs it, for each stage
+    (its small check and its batch-128 352x352 bench), the launch count
+    read around it; then each stage's kernel against its twin at a small
+    shape, at S=18 (odd S/2) and at 128x352."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    stem_probe.launches = 0
+    runs = {st: probe_stem_cuda.main(["--stage", st, "--bench", "--iters", str(STEM_ITERS)])
+            for st in STAGES}
+    torch.cuda.synchronize()
+    launches = stem_probe.launches
+    expected = len(STAGES) * (1 + 2 + STEM_ITERS)  # check, warmup, timed calls
+    check(launches == expected, f"stem_probe launches {launches} == {expected}")
+    for st, run in runs.items():
+        t = run["bench"]
+        report("stem_probe", stage=st, b=t["batch"], s=t["size"], kernel_ms=f"{t['ms']:.4f}",
+               plain_ms=f"{t['plain_ms']:.4f}", bound_ms=f"{t['bound_ms']:.4f}",
+               bound_by=t["bound_by"], library_ms=t["library_ms"], card=f"'{smi}'")
+    report("stem_probe", launches=launches)
+
+    worst = {st: 0.0 for st in STAGES}
+    for st in STAGES:
+        for b, s in STEM_SHAPES:
+            args = probe_stem_cuda.stage_inputs(st, b, s, device, seed=b + s)
+            got = stem_probe(args[0], st, *args[1:])
+            want = stem_probe_reference(args[0], st, *args[1:])
+            torch.cuda.synchronize()
+            check(got.shape == want.shape == (b, s // 2, s // 2 * 32), f"stage {st} S={s} shape")
+            err = float((got.float() - want.float()).abs().max())
+            tol = probe_stem_cuda.tolerance(st, want)
+            check(err <= tol, f"stem_probe stage {st} B={b} S={s}: {err} <= {tol}")
+            worst[st] = max(worst[st], err)
+            report("stem_probe", stage=st, b=b, s=s, max_abs_err=err, tol=f"{tol:.4g}")
+            del got, want, args
+    return launches, worst["c"], runs["c"]["bench"]
+
+
+def check_remat_step(device) -> None:
+    """One batch-32 352x352 float32 step of the remat model against the
+    plain model, same weights and batch: the same loss, the same BatchNorm
+    buffers, and every ``num_batches_tracked`` up by one."""
+    losses, buffers = {}, {}
+    for remat in (False, True):
+        model, config, images, gt, n_gt = bench_train.setup(TRAIN_BATCH, SIZE, remat, device)
+        state = create_train_state(model)
+        _, metrics = make_train_step(model, config)(state, images, gt, n_gt)
+        losses[remat] = float(metrics["loss"])
+        buffers[remat] = {k: v.clone() for k, v in model.state_dict().items()
+                          if "running" in k or "num_batches" in k}
+    rel = abs(losses[True] - losses[False]) / abs(losses[False])
+    check(rel <= REMAT_LOSS_RTOL, f"remat loss {losses[True]} vs plain {losses[False]}: {rel:.3g}")
+    diff = max(float((buffers[True][k].double() - v.double()).abs().max())
+               for k, v in buffers[False].items())
+    check(diff == 0.0, f"remat BN buffers equal the plain model's (max diff {diff:.3g})")
+    counts = {int(v) for k, v in buffers[True].items() if k.endswith("num_batches_tracked")}
+    check(counts == {1}, f"num_batches_tracked after one remat step: {counts}")
+    report("tools", remat_first_loss=f"{losses[True]:.7f}", plain_first_loss=f"{losses[False]:.7f}",
+           rel=f"{rel:.3g}", tol=REMAT_LOSS_RTOL, bn_buffers_max_diff=diff,
+           num_batches_tracked=sorted(counts))
+
+
+def phase_tools(device) -> dict:
+    """The measurement tools as a user runs them, at reduced iterations:
+    ``bench_train`` at batch 32 float32 with and without ``--remat``, the
+    remat step against the plain step, ``bench_geometry --stages --fused
+    on`` at 416, ``probe_aug_kernels`` and ``probe_stem``; the kernel
+    launch counts read around them."""
+    for counted in LAUNCH_COUNTERS:
+        counted.launches = 0
+    for remat in (False, True):
+        rec = bench_train.main(["--batch-size", str(TRAIN_BATCH), "--iters", str(TOOLS_ITERS),
+                                "--json"] + (["--remat"] if remat else []))
+        ratio = rec["bwd_chain_gflops"] / rec["fwd_loss_gflops"]
+        check(rec["bwd_delta_ms"] > 0, f"bench_train remat={remat}: bwd_delta_ms > 0")
+        check(ratio >= 2.0, f"bench_train remat={remat}: fwd+loss+bwd / fwd+loss FLOPs {ratio}")
+        report("tools", bench_train=rec["label"], step_ms=f"{rec['step_ms']:.3f}",
+               bwd_delta_ms=f"{rec['bwd_delta_ms']:.3f}", flop_ratio=f"{ratio:.3f}")
+    check_remat_step(device)
+    geo = bench_geometry.main(["--stages", "--fused", "on", "--img-size", str(TRAIN_SIZES[1]),
+                               "--iters", str(TOOLS_ITERS)])
+    timed = ("plain_step_ms", "geometry_step_ms", "stage_noise_ms", "stage_total_ms",
+             "stage_fused_total_ms")
+    check(all(np.isfinite(geo[k]) and geo[k] > 0 for k in timed), f"bench_geometry times {geo}")
+    report("tools", bench_geometry=geo["label"], **{k: f"{geo[k]:.3f}" for k in timed})
+    aug = probe_aug_kernels.main([])
+    stem = probe_stem.main(["--iters", str(TOOLS_ITERS)])
+    fold_tol = STEM_FOLD_REL_TOL * stem["a_max_abs"]
+    check(max(stem["b_max_abs_diff"], stem["c_max_abs_diff"]) <= fold_tol,
+          f"probe_stem: the b and c folds give formulation a's output within {fold_tol}")
+    torch.cuda.synchronize()
+    launches = {"slot_aug": slot_aug.launches, "aug_compose": aug_compose.launches}
+    check(all(n > 0 for n in launches.values()), f"the tools launched the aug kernels: {launches}")
+    report("tools", launches=launches, aug_max_abs_err=aug["aug_compose_max_abs_err"],
+           stem_d_max_abs_diff=stem["d_max_abs_diff"])
+    return launches
+
+
 def phase_timing(device, smi: str, state: dict) -> dict:
     predict, val_conf = state["predict"], state["val_conf"]
     model, x128 = state["model"], state["x128"]
@@ -815,7 +910,10 @@ def main() -> None:
     max_err.update(fused_errs)
     fused_launches, state["folded"] = phase_serve_folded(device)
     launches.update(fused_launches)
+    launches["stem_probe"], max_err["stem_probe"], stem_times = phase_stem_probe(device, smi)
+    phase_tools(device)
     times = phase_timing(device, smi, state)
+    times["stem_probe"] = stem_times
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda", "source": source, "replaces": replaces,
         "launches": launches[name], "max_abs_err": max_err[name],

@@ -11,5 +11,10 @@ and ``eval.detector.make_predict_fn`` — plus ``convert`` for the weights;
 and the training step — ``ops`` (straight-through sigmoid, CIoU/GIoU,
 target assignment, losses, device augmentation), ``kernels`` (the
 hand-written slot-augmentation and augment-and-compose kernels) and
-``train`` (AdamW state, schedule, plain and device-geometry steps).
+``train`` (AdamW state, schedule, plain and device-geometry steps); the
+BatchNorm folding and the fused-block kernels of the folded forward; and
+the measurement tools — ``tools`` (training split, geometry step, stem
+and augmentation probes), ``utils.profiling`` (CUDA-event timing, traces),
+``kernels.stem_probe`` (the stem roofline kernel) and ``config`` (the VOC
+contract as plain dicts).
 """

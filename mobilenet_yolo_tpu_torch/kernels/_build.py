@@ -121,4 +121,7 @@ def load() -> ctypes.CDLL:
     # tw, bf16, stream
     lib.myt_fused_stem.argtypes = [ptr] * 8 + [i32] * 8 + [ptr]
     lib.myt_fused_stem.restype = ctypes.c_int
+    # x, w, bias, out, batch, s, stage, stream
+    lib.myt_stem_probe.argtypes = [ptr] * 4 + [i32] * 3 + [ptr]
+    lib.myt_stem_probe.restype = ctypes.c_int
     return lib

@@ -17,7 +17,8 @@ def build_model(config: dict, backbone: str = "mbv2", dtype=None, *,
                 device="cuda", generator: torch.Generator | None = None):
     """Factory keyed on the model-yaml dict (same contract as the JAX
     ``build_model``): ``yolo.num_classes``/``num_anchors``, the optional
-    ``seg.num_classes`` head and the ``prune:`` width overrides.
+    ``seg.num_classes`` head, the ``prune:`` width overrides and ``remat``
+    (recompute the backbone blocks in the backward, ``:32-34``).
 
     The model is placed on ``device``, the card unless the caller asks for
     the CPU (``device="cpu"``); without a card the default raises.
@@ -34,6 +35,7 @@ def build_model(config: dict, backbone: str = "mbv2", dtype=None, *,
     hidden = prune_cfg.get("backbone_hidden")
     hidden = tuple(hidden) if hidden else None
     head = prune_cfg.get("backbone_head")
+    remat = bool(config.get("remat", False))
     if backbone in ("mbv3", "mbv3_macc"):
         raise NotImplementedError(
             f"backbone {backbone!r} is not ported yet "
@@ -47,6 +49,6 @@ def build_model(config: dict, backbone: str = "mbv2", dtype=None, *,
     init_device = generator.device if generator is not None else device
     model = MBv2YOLO(num_classes=num_classes, num_anchors=num_anchors,
                      seg_num_classes=seg_classes, backbone_hidden=hidden,
-                     backbone_head=head, device=init_device, dtype=dtype,
+                     backbone_head=head, remat=remat, device=init_device, dtype=dtype,
                      generator=generator)
     return model.to(device)

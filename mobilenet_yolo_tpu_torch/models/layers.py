@@ -14,16 +14,20 @@ so every block takes ``in_features``. Flax pads by the integer
 ``kernel // 2`` (``layers.py:79``), which is symmetric, so torch
 ``padding=kernel // 2`` is the same convolution at stride 1 and 2.
 Every block's BatchNorm is ``BatchNorm2d`` below, which keeps flax's
-train-mode running-variance update.
+train-mode running-variance update. ``rematerialized`` runs a block under
+``torch.utils.checkpoint`` as flax's ``nn.remat`` does, its BatchNorm
+buffers moved once per step.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Callable
 
 import torch
 from torch import nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 # flax momentum 0.9 (fraction of the old running stat) == torch momentum 0.1
 BN_MOMENTUM = 0.1
@@ -59,10 +63,19 @@ class BatchNorm2d(nn.BatchNorm2d):
     torch's, so ``convert.py`` and ``strict=True`` loads are unchanged.
     """
 
+    # set by ``rematerialized`` while the backward recomputes this layer
+    recomputing = False
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         n = x.numel() // x.shape[1]
         if not (self.training and self.track_running_stats) or n < 2:
             return super().forward(x)
+        if self.recomputing:
+            # normalise with the batch statistics as the first pass did; the
+            # same op on copies of the buffers, so the recompute saves what
+            # the first pass saved and moves no running statistic or count
+            return F.batch_norm(x, self.running_mean.clone(), self.running_var.clone(),
+                                self.weight, self.bias, True, 0.0, self.eps)
         with torch.no_grad():
             self.running_var.mul_(n / (n - 1))
         out = super().forward(x)
@@ -70,6 +83,33 @@ class BatchNorm2d(nn.BatchNorm2d):
         with torch.no_grad():
             self.running_var = self.running_var * ((n - 1) / n)
         return out
+
+
+@contextlib.contextmanager
+def _recomputing(module: nn.Module):
+    bns = [m for m in module.modules() if isinstance(m, BatchNorm2d)]
+    for bn in bns:
+        bn.recomputing = True
+    try:
+        yield
+    finally:
+        for bn in bns:
+            bn.recomputing = False
+
+
+def rematerialized(block: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    """``block(x)`` whose activations are recomputed in the backward instead
+    of stored: the counterpart of flax's ``nn.remat`` (``jax.checkpoint``).
+
+    The recompute runs ``block`` again in train mode, where a plain
+    ``checkpoint`` would move every BatchNorm's running statistics a second
+    time, apply the n/(n-1) rescale of ``BatchNorm2d`` twice and count
+    ``num_batches_tracked`` twice; ``nn.remat`` does none of that. The
+    recompute context makes each BatchNorm normalise with the batch
+    statistics and leave its buffers alone.
+    """
+    return checkpoint(block, x, use_reentrant=False,
+                      context_fn=lambda: (contextlib.nullcontext(), _recomputing(block)))
 
 
 def _kaiming_out_(weight: torch.Tensor, generator: torch.Generator | None) -> None:

@@ -3,7 +3,8 @@
 Port of ``mobilenet_yolo_tpu/models/mbv2_yolo.py:29-67``: a two-scale
 FPN-lite on the MobileNetV2 taps plus an optional segmentation branch.
 ``forward`` returns raw logits ``{"out0", "out1"[, "seg"]}`` as NCHW
-tensors; no decode or NMS inside (those are ``ops/``).
+tensors; no decode or NMS inside (those are ``ops/``). ``remat`` recomputes
+the backbone blocks in the backward (``MobileNetV2``).
 """
 
 from __future__ import annotations
@@ -25,12 +26,12 @@ class MBv2YOLO(nn.Module):
     def __init__(self, num_classes: int = 20, num_anchors: int = 3,
                  seg_num_classes: int = 0, width_mult: float = 1.0,
                  backbone_hidden: tuple[int | None, ...] | None = None,
-                 backbone_head: int | None = None, *, device=None, dtype=None,
-                 generator: torch.Generator | None = None):
+                 backbone_head: int | None = None, remat: bool = False, *, device=None,
+                 dtype=None, generator: torch.Generator | None = None):
         super().__init__()
         kw = dict(device=device, dtype=dtype, generator=generator)
         head_ch = num_anchors * (5 + num_classes)
-        self.backbone = MobileNetV2(width_mult, backbone_hidden, backbone_head, **kw)
+        self.backbone = MobileNetV2(width_mult, backbone_hidden, backbone_head, remat, **kw)
         c4, c5 = self.backbone.c4_features, self.backbone.c5_features
 
         self.conv_for_S32 = ConvBNAct(c5, 512, 1, **kw)

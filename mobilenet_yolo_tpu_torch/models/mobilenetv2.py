@@ -12,6 +12,13 @@ mode, its stem and blocks through the fused CUDA kernels
 ``fused_inverted_residual`` (residual where the block is an identity).
 That is 1 + 4 + 12 = 17 launches per forward at the MobileNetV2 widths.
 ``head_conv`` stays a cuDNN conv with the folded bias.
+
+``remat=True`` (``config["remat"]`` through ``build_model``) recomputes each
+block's activations in the backward instead of storing them, as the JAX
+``nn.remat`` does (``mobilenetv2.py:39-56``): the blocks, not the stem and
+not ``head_conv``, run under ``layers.rematerialized`` whenever autograd
+records. The parameters and their names are those of the plain model. A
+folded backbone ignores it: it runs in eval mode only.
 """
 
 from __future__ import annotations
@@ -29,6 +36,7 @@ from mobilenet_yolo_tpu_torch.models.layers import (
     InvertedResidual,
     check_inference,
     make_divisible,
+    rematerialized,
 )
 
 # (expand_ratio t, channels c, repeats n, stride s) — mobilenetv2.py:17-27
@@ -53,9 +61,10 @@ class MobileNetV2(nn.Module):
 
     def __init__(self, width_mult: float = 1.0,
                  hidden_overrides: tuple[int | None, ...] | None = None,
-                 head_features: int | None = None, *, device=None, dtype=None,
-                 generator: torch.Generator | None = None):
+                 head_features: int | None = None, remat: bool = False, *, device=None,
+                 dtype=None, generator: torch.Generator | None = None):
         super().__init__()
+        self.remat = remat
         kw = dict(device=device, dtype=dtype, generator=generator)
         div = 4 if width_mult == 0.1 else 8
         ch = make_divisible(32 * width_mult, div)
@@ -83,8 +92,10 @@ class MobileNetV2(nn.Module):
         if self.stem.folded:
             return self._forward_fused(x)
         x = self.stem(x)
+        remat = self.remat and torch.is_grad_enabled()
         for idx in range(self.num_blocks):
-            x = getattr(self, f"block{idx}")(x)
+            block = getattr(self, f"block{idx}")
+            x = rematerialized(block, x) if remat else block(x)
             if idx + 1 == self.c4_blocks:
                 c4 = x  # stride 16
         return c4, self.head_conv(x)  # stride 32

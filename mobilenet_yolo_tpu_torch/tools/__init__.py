@@ -1,0 +1,29 @@
+"""The port's measurement tools, run as ``python -m mobilenet_yolo_tpu_torch.tools.<name>``.
+
+Ports of the JAX package's ``tools/``: ``bench_train`` (the training split),
+``bench_geometry`` (the device-geometry step against the plain step),
+``probe_stem`` (the cuDNN stem formulations), ``probe_stem_cuda`` (the
+staged stem roofline kernel) and ``probe_aug_kernels`` (the augmentation
+kernels against their plain twins). Each runs on the card unless given
+``--device cpu``, and raises without one.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def tool_device(name: str) -> torch.device:
+    """The device a tool runs on: ``cuda`` (the default of every tool)
+    raises without a card; ``cpu`` only when the caller asked for it."""
+    device = torch.device(name)
+    if device.type not in ("cuda", "cpu"):
+        raise ValueError(f"the tools run on cuda or cpu, not {name!r}")
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("this tool runs on the card by default and no CUDA device is "
+                           "available; pass --device cpu to run it on the CPU")
+    return device
+
+
+def device_name(device: torch.device) -> str:
+    return torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"

@@ -378,3 +378,83 @@ def test_folded_predict_launches_the_fused_kernels(cuda, dtype):
 def _fused_counts():
     return [fb.fused_stem_block0.launches, fb.fused_inverted_residual_s2.launches,
             fb.fused_inverted_residual.launches]
+
+
+# -------------------------------------------- the stem roofline probe kernel
+
+# tolerances: ``probe_stem_cuda.tolerance``. Stages a and b sum thousands of
+# floats in another order than the twin and round once to bf16: a rounding
+# may tip by one bf16 spacing, at most that of the largest output. Stage c
+# sums in the twin's order; held within 2^-8 of the largest output.
+
+@pytest.mark.parametrize("stage", ["a", "b", "c"])
+@pytest.mark.parametrize("b,s", [(2, 16), (3, 18), (4, 352), (2, 34)])
+def test_stem_probe_kernel_matches_twin(cuda, stage, b, s):
+    """S=18 has an odd S/2; S=34 rows (102 floats) take the scalar loads."""
+    from mobilenet_yolo_tpu_torch.kernels.stem_probe import stem_probe, stem_probe_reference
+    from mobilenet_yolo_tpu_torch.tools.probe_stem_cuda import stage_inputs, tolerance
+
+    x, *wb = stage_inputs(stage, b, s, cuda, seed=b + s)
+    before = stem_probe.launches
+    got = stem_probe(x, stage, *wb)
+    torch.cuda.synchronize()
+    assert stem_probe.launches == before + 1
+    assert got.shape == (b, s // 2, s // 2 * 32) and got.dtype == torch.bfloat16
+    want = stem_probe_reference(x, stage, *wb)
+    err = float((got.float() - want.float()).abs().max())
+    assert err <= tolerance(stage, want), (err, tolerance(stage, want))
+
+
+def test_stem_probe_stage_c_matches_conv2d(cuda):
+    from mobilenet_yolo_tpu_torch.kernels.stem_probe import stem_probe
+    from mobilenet_yolo_tpu_torch.tools.probe_stem_cuda import conv_stem, stage_inputs, tolerance
+
+    args = stage_inputs("c", 2, 64, cuda, seed=3)
+    got, want = stem_probe(args[0], "c", *args[1:]), conv_stem(*args)
+    err = float((got.float() - want.float()).abs().max())
+    assert err <= tolerance("c", want), err
+
+
+def test_stem_probe_rejects_what_it_does_not_take(cuda):
+    from mobilenet_yolo_tpu_torch.kernels.stem_probe import stem_probe
+
+    with pytest.raises(ValueError, match="S even"):
+        stem_probe(torch.zeros((1, 15, 45), device=cuda), "a")
+    with pytest.raises(ValueError, match="w on cpu"):
+        stem_probe(torch.zeros((1, 16, 48), device=cuda), "c", torch.zeros(9, 3, 32),
+                   torch.zeros(32, device=cuda))
+
+
+# --------------------------------------------------------- remat on the card
+
+def test_remat_step_matches_the_plain_step(cuda):
+    """One width-0.35 float64 step of the remat model against the plain
+    model on the same weights and batch: the loss within 1e-6 relative,
+    the gradients within 1e-7 of each leaf's largest (the recompute runs
+    the same kernels; cuDNN's backward may sum in another order), the
+    BatchNorm buffers equal and every count at one."""
+    from mobilenet_yolo_tpu_torch.models.mbv2_yolo import MBv2YOLO
+    from mobilenet_yolo_tpu_torch.train import create_train_state, make_train_step
+
+    cfg = {**VOC, "yolo": {**VOC["yolo"], "ignore_thresh": [0.6, 0.56], "iou_thresh": 0.55}}
+    rng = np.random.default_rng(4)
+    images = torch.from_numpy(rng.normal(size=(4, 96, 96, 3))).to(cuda)
+    gt = torch.zeros((4, 8, 5), dtype=torch.float64, device=cuda)
+    gt[:, 0] = torch.tensor([1.0, 0.5, 0.5, 0.4, 0.4])
+    n_gt = torch.ones(4, dtype=torch.int32, device=cuda)
+    runs = {}
+    for remat in (False, True):
+        model = MBv2YOLO(num_classes=20, width_mult=0.35, remat=remat, dtype=torch.float64,
+                         generator=torch.Generator().manual_seed(0)).to(cuda)
+        _, metrics = make_train_step(model, cfg)(create_train_state(model), images, gt, n_gt)
+        runs[remat] = (float(metrics["loss"]), model)
+    (loss_p, plain), (loss_r, remat) = runs[False], runs[True]
+    assert abs(loss_r - loss_p) <= 1e-6 * abs(loss_p)
+    for (name, p), q in zip(plain.named_parameters(), remat.parameters()):
+        assert float((p.grad - q.grad).abs().max()) <= 1e-7 * float(p.grad.abs().max()) + 1e-12, name
+    want, got = plain.state_dict(), remat.state_dict()
+    for key in want:
+        if "running" in key or "num_batches" in key:
+            assert torch.equal(got[key], want[key]), key
+        if key.endswith("num_batches_tracked"):
+            assert int(got[key]) == 1, key

@@ -170,3 +170,71 @@ def test_converter_maps_layout_and_loads_strict():
 def test_unported_backbones_raise(backbone):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         build_model(load_yaml(VOC_CONFIG), backbone=backbone)
+
+
+# ---------------------------------------------------------------- remat
+
+REMAT_CFG = {"yolo": {"num_classes": 3, "num_anchors": 3}}
+
+
+def test_remat_state_dict_and_forward_identical():
+    """The port of ``tests/test_remat.py:44``: ``config["remat"]`` keeps the
+    plain model's state-dict keys and values (one seed) and its forward, in
+    eval mode and in train mode with autograd recording (the remat path)."""
+    x = torch.from_numpy(nhwc_input(0, (2, 64, 64, 3))).permute(0, 3, 1, 2)
+    plain = build_model(REMAT_CFG, device="cpu", generator=torch.Generator().manual_seed(0))
+    remat = build_model({**REMAT_CFG, "remat": True}, device="cpu",
+                        generator=torch.Generator().manual_seed(0))
+    assert remat.backbone.remat and not plain.backbone.remat
+    want, got = plain.state_dict(), remat.state_dict()
+    assert list(want) == list(got)
+    for key in want:
+        assert torch.equal(want[key], got[key]), key
+    with torch.no_grad():
+        out_p, out_r = plain.eval()(x), remat.eval()(x)
+    for key in out_p:
+        assert torch.equal(out_p[key], out_r[key]), key
+    out_p, out_r = plain.train()(x), remat.train()(x)
+    for key in out_p:
+        assert torch.equal(out_p[key], out_r[key]), key
+
+
+def _remat_pair(dtype=torch.float64):
+    plain = MobileNetV2(width_mult=0.35, dtype=dtype, generator=torch.Generator().manual_seed(0))
+    remat = MobileNetV2(width_mult=0.35, remat=True, dtype=dtype)
+    remat.load_state_dict(plain.state_dict())
+    return plain.train(), remat.train()
+
+
+def test_remat_gradients_match_in_float64():
+    """The port of ``tests/test_remat.py:58``: gradients of the train-mode
+    taps, float64, within 1e-7 of each leaf's largest."""
+    x = torch.from_numpy(nhwc_input(1, (2, 64, 64, 3))).permute(0, 3, 1, 2).double()
+    grads = []
+    for model in _remat_pair():
+        c4, c5 = model(x)
+        loss = c4.square().sum() + c5.square().sum()
+        grads.append(dict(zip([n for n, _ in model.named_parameters()],
+                              torch.autograd.grad(loss, list(model.parameters())))))
+    assert list(grads[0]) == list(grads[1])
+    for name, gp in grads[0].items():
+        err = float((gp - grads[1][name]).abs().max() / (gp.abs().max() + 1e-12))
+        assert err < 1e-7, (name, err)
+
+
+def test_remat_backward_leaves_batchnorm_buffers_as_the_plain_model():
+    """The recompute in the backward must not move a running statistic or
+    count a batch again (flax's ``nn.remat`` does neither): after one
+    forward and backward the BN buffers equal the plain model's exactly
+    and every ``num_batches_tracked`` is 1. A plain ``checkpoint`` fails
+    here (two updates, two counts)."""
+    x = torch.from_numpy(nhwc_input(2, (2, 64, 64, 3))).permute(0, 3, 1, 2).double()
+    states = []
+    for model in _remat_pair():
+        c4, c5 = model(x)
+        (c4.sum() + c5.square().sum()).backward()
+        states.append(model.state_dict())
+    for key, want in states[0].items():
+        assert torch.equal(states[1][key], want), key
+        if key.endswith("num_batches_tracked"):
+            assert int(want) == 1, key

@@ -553,3 +553,63 @@ def test_pixel_aug_step_equals_prejittered_images():
         _, metrics = step(create_train_state(model), images, _t(gt), _t(n_gt), *extra)
         result.append(float(metrics["loss"]))
     assert result[0] == result[1]
+
+
+def test_remat_train_step_matches_jax(variables64):
+    """One ``make_train_step`` step of the remat model (``remat=True``: the
+    backbone blocks recomputed in the backward, JAX's ``nn.remat``), float64
+    on both sides, the JAX step under ``optax.sgd(1.0)`` so its parameter
+    change is minus the gradient. Loss rtol 1e-6 (float32 loss on both
+    sides), gradients atol 1e-5 * max|g| of the leaf, BN statistics 1e-9
+    (one update, not two) and every ``num_batches_tracked`` at 1."""
+    rng = np.random.default_rng(0)  # test_train_step_matches_jax's batch
+    x = rng.normal(0, 1, (4, 32, 32, 3))
+    gt, n_gt = padded_gt(rng, [2, 0, 3, 6], 6)
+    with jax.enable_x64(True):
+        jm = JaxMBv2YOLO(num_classes=3, num_anchors=3, width_mult=0.35, dtype=jnp.float64,
+                         remat=True)
+        sgd = optax.sgd(1.0)
+        step = j_step.make_train_step(jm, SMALL_YOLO_CONFIG, sgd, donate=False)
+        stepped, want_metrics = step(_jax_state(variables64, sgd), x, gt, n_gt)
+        grads = jax.tree_util.tree_map(lambda p, q: np.asarray(p) - np.asarray(q),
+                                       variables64["params"], stepped.params)
+    model = load_flax_variables(MBv2YOLO(num_classes=3, num_anchors=3, width_mult=0.35,
+                                         remat=True, dtype=torch.float64), variables64)
+    _, metrics = make_train_step(model, SMALL_YOLO_CONFIG)(create_train_state(model), _t(x),
+                                                           _t(gt), _t(n_gt))
+    np.testing.assert_allclose(float(metrics["loss"]), float(want_metrics["loss"]), rtol=1e-6)
+    port_params = dict(model.named_parameters())
+    for key, want in state_dict_of("params", grads).items():
+        np.testing.assert_allclose(port_params[key].grad.numpy(), want,
+                                   atol=1e-5 * np.abs(want).max() + 1e-12, err_msg=key)
+    _assert_bn_stats_match(model, stepped.batch_stats)
+    counts = {int(v) for k, v in model.state_dict().items() if k.endswith("num_batches_tracked")}
+    assert counts == {1}
+
+
+def test_remat_train_step_matches_the_plain_step_in_float64(variables64):
+    """One ``make_train_step`` step, float64, the remat model against the
+    plain model on the same weights and batch: the loss equal to 1e-12
+    relative (the same forward), every gradient within 1e-7 of its leaf's
+    largest, the parameters, BN statistics and counts after the step equal
+    to 1e-12 (one BN update each, not two)."""
+    rng = np.random.default_rng(5)
+    x = rng.normal(0, 1, (4, 32, 32, 3))
+    gt, n_gt = padded_gt(rng, [1, 3, 0, 2], 6)
+    runs = []
+    for remat in (False, True):
+        model = load_flax_variables(MBv2YOLO(num_classes=3, num_anchors=3, width_mult=0.35,
+                                             remat=remat, dtype=torch.float64), variables64)
+        _, metrics = make_train_step(model, SMALL_YOLO_CONFIG)(create_train_state(model), _t(x),
+                                                               _t(gt), _t(n_gt))
+        runs.append((float(metrics["loss"]), model))
+    (loss_p, plain), (loss_r, remat) = runs
+    np.testing.assert_allclose(loss_r, loss_p, rtol=1e-12)
+    for (name, p), q in zip(plain.named_parameters(), remat.parameters()):
+        np.testing.assert_allclose(q.grad.numpy(), p.grad.numpy(),
+                                   atol=1e-7 * float(p.grad.abs().max()) + 1e-15, err_msg=name)
+    want, got = plain.state_dict(), remat.state_dict()
+    assert list(want) == list(got)
+    for key in want:
+        np.testing.assert_allclose(got[key].numpy(), want[key].numpy(), rtol=1e-12, atol=1e-15,
+                                   err_msg=key)
