@@ -7,7 +7,9 @@ Phases, one output line each (any failure raises and exits non-zero):
 
 1. device   — refuses to run without CUDA; prints the card's name and power
               limit as ``nvidia-smi`` reports them.
-2. build    — compiles ``mobilenet_yolo_tpu_torch/csrc/*.cu`` with nvcc.
+2. build    — compiles ``mobilenet_yolo_tpu_torch/csrc/*.cu`` with nvcc; prints
+              ptxas's registers and spills of every instance of the bf16
+              tensor-core block kernel (``fused_block_bf16.cu``).
 3. kernel   — the NMS suppression kernel against its plain twin on the card,
               bit-equal: random (B=128, K=256), K=60 (64x64 input), chain.
 4. serve    — the full-width VOC MBv2-YOLO (random weights from a seeded
@@ -34,10 +36,10 @@ Phases, one output line each (any failure raises and exits non-zero):
               mode draws one noise stream from one seed).
 7. fused_kernels — the three fused-block kernels of the BatchNorm-folded
               forward (``fused_stem_block0``, ``fused_inverted_residual_s2``,
-              ``fused_inverted_residual``) against their cuDNN twins, TF32
-              off, in float32 and bf16, at the batch-128 352x352 shape of
-              every backbone block, an unaligned width and odd output
-              widths.
+              ``fused_inverted_residual``; bf16 blocks run the tensor-core
+              kernel) against their cuDNN twins, TF32 off, in float32 and
+              bf16, at the batch-128 352x352 shape of every backbone block,
+              an unaligned width and odd output widths.
 8. serve_folded — the same VOC model folded (``fold_batchnorm``) and served
               through ``make_predict_fn``: batch 1 and 128 at 352x352 in
               float32, uint8 normalize and bf16. Checks each request
@@ -62,7 +64,13 @@ Phases, one output line each (any failure raises and exits non-zero):
 11. timing  — CUDA-event throughput at batch 128 (f32, bf16, u8), unfolded
               and folded, batch-1 latency, the train step per mode and
               dtype, and each kernel's time beside its twin's and its bound
-              (each fused kernel at every block shape).
+              (each fused kernel at every block shape, float32 and bf16).
+
+The line before the last also carries, for the three fused kernels, their
+bf16 sums per b128 predict (``bf16_ms``, ``bf16_plain_ms``,
+``bf16_library_ms``; ``bf16_library_device_ms``, the twins' kernels alone
+from ``torch.profiler``; ``bf16_bound_ms``) and worst bf16 error relative
+to the largest output (``bf16_max_rel_err``).
 
 The line before the last is the per-kernel JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX, yaml or PIL.
@@ -93,6 +101,7 @@ from mobilenet_yolo_tpu_torch.models.bn_fold import fold_batchnorm
 from mobilenet_yolo_tpu_torch.ops.nms import _suppression_matrix
 from mobilenet_yolo_tpu_torch.tools import (bench_geometry, bench_train, probe_aug_kernels,
                                             probe_stem, probe_stem_cuda)
+from mobilenet_yolo_tpu_torch.tools.probe_fused_tiles import block_shapes, kernel_ms as profiled_ms
 from mobilenet_yolo_tpu_torch.train import (GEOMETRY_BATCH_KEYS, create_train_state,
                                             make_geometry_train_step, make_train_step,
                                             random_geometry_batch)
@@ -164,18 +173,24 @@ KERNELS = {
     "stem_probe": ("mobilenet_yolo_tpu_torch/csrc/stem_probe.cu",
                    "tools/probe_stem_pallas.py:126"),
 }
+BF16_SOURCES = {"fused_inverted_residual": "mobilenet_yolo_tpu_torch/csrc/fused_block_bf16.cu",
+                "fused_inverted_residual_s2": "mobilenet_yolo_tpu_torch/csrc/fused_block_bf16.cu",
+                "fused_stem_block0": "mobilenet_yolo_tpu_torch/csrc/fused_stem.cu"}
 FUSED = {"fused_inverted_residual": fb.fused_inverted_residual,
          "fused_inverted_residual_s2": fb.fused_inverted_residual_s2,
          "fused_stem_block0": fb.fused_stem_block0}
 LAUNCH_COUNTERS = (suppress, slot_aug, aug_compose, *FUSED.values(), stem_probe)
 # fused kernel vs twin, relative to the largest output. float32: only the
 # order of summation differs (the kernel sums the project over 32-channel
-# chunks; up to 960 terms at 6e-8 each is 5.8e-5 at worst). bf16: the twin
-# rounds the hidden tensor, the depthwise output and each conv's output to
-# bf16 (2^-9 relative each), the kernel only its output, and the two
-# outputs may then sit one bf16 spacing (2^-7 relative) apart
+# chunks; up to 960 terms at 6e-8 each is 5.8e-5 at worst). bf16
+# (``fb.BF16_REL_TOL``): the block kernel rounds where pallas_fused.py does
+# (float32 hidden and depthwise, the depthwise output rounded to bf16, one
+# output rounding), the twin also rounds the hidden tensor, the project's
+# output and the residual sum (2^-9 relative each); the two outputs may sit
+# one bf16 spacing of the largest (2^-7) apart plus a few roundings. The
+# stem kernel keeps float32 inside and rounds its output once
 FUSED_F32_REL_TOL = 1e-4
-FUSED_BF16_REL_TOL = 3e-2
+FUSED_BF16_REL_TOL = fb.BF16_REL_TOL
 # folded and fused heads vs the unfolded model's on the served (calibrated)
 # weights in float32: the calibrated random network amplifies float32
 # rounding ~450-fold (2.7e-5 against float64), and folding rounds each
@@ -224,9 +239,21 @@ def phase_build() -> None:
     lib = _build.build()
     _build.load()
     seconds = time.perf_counter() - t0
-    ptxas = [line.strip() for line in lib.with_suffix(".log").read_text().splitlines()
-             if "registers" in line or "spill" in line]
+    log = lib.with_suffix(".log").read_text()
+    ptxas = [line.strip() for line in log.splitlines() if "registers" in line or "spill" in line]
     report("build", seconds=f"{seconds:.2f}", library=lib.name, ptxas=" | ".join(ptxas))
+    # the bf16 block kernel's instances <S, MW, NW, warps>: registers, spills
+    instance = None
+    for line in log.split("== fused_block_bf16.cu")[1].split("\n== ")[0].splitlines():
+        if "Compiling entry function" in line:
+            instance = line.split("fused_block_bf16_kernelI")[1].split("EEEv")[0]
+            instance = "<" + ",".join(instance.replace("Li", " ").replace("E", "").split()) + ">"
+        elif "spill stores" in line:
+            spill_bytes = int(line.split(",")[1].split()[0])
+        elif "Used" in line and instance:
+            report("build", bf16_kernel=instance, registers=int(line.split("Used ")[1].split()[0]),
+                   spill_store_bytes=spill_bytes)
+            instance = None
 
 
 def random_over(gen: torch.Generator, b: int, k: int, density: float, device):
@@ -524,24 +551,6 @@ def phase_train(device, batches: dict) -> tuple[dict, dict]:
     return launches, runs
 
 
-def fused_block_shapes(backbone, batch: int, size: int) -> list[tuple]:
-    """(blocks, kernel, x shape, hidden, cout, residual) of every fused
-    launch of the folded backbone at ``size``, one entry per distinct shape."""
-    b0 = backbone.block0
-    out = {("fused_stem_block0", (batch, size, size, 3), backbone.stem.conv.out_channels,
-            b0.project.conv.out_channels, False): ["stem+0"]}
-    h, c = size // 2, b0.project.conv.out_channels
-    for idx in range(1, backbone.num_blocks):
-        blk = getattr(backbone, f"block{idx}")
-        stride = blk.depthwise.conv.stride[0]
-        kernel = "fused_inverted_residual_s2" if stride == 2 else "fused_inverted_residual"
-        key = (kernel, (batch, h, h, c), blk.expand.conv.out_channels,
-               blk.project.conv.out_channels, blk.identity)
-        out.setdefault(key, []).append(f"block{idx}")
-        h, c = h // stride, blk.project.conv.out_channels
-    return [("/".join(names), *key) for key, names in out.items()]
-
-
 def fused_work(kernel: str, x_shape: tuple, ch: int, cout: int, elem: int) -> tuple[int, int]:
     """FLOPs (the expand over every input pixel, as the Pallas kernels do
     it) and bytes (each input and output once) of one fused launch."""
@@ -579,19 +588,30 @@ def run_fused(kernel: str, args: list, residual: bool, twin: bool = False) -> to
             else fb.fused_inverted_residual(*args, residual=residual))
 
 
-def phase_fused_kernels(device) -> tuple[dict, list]:
+def tile_of(kernel: str, dt_name: str, x_shape: tuple, ch: int, cout: int) -> tuple:
+    """The output tile the kernel's wrapper picks for this launch."""
+    b, h, w, cin = x_shape
+    if kernel == "fused_stem_block0":
+        return fb.pick_tile("stem", h // 2, w // 2, 3, cout)
+    stride = 2 if kernel == "fused_inverted_residual_s2" else 1
+    kind = f"s{stride}" + ("_bf16" if dt_name == "bf16" else "")
+    return fb.pick_tile(kind, h // stride, w // stride, cin, cout, ch, b)
+
+
+def phase_fused_kernels(device) -> tuple[dict, dict, list]:
     """Each fused kernel against its twin at every block shape of the served
     model (batch 128, 352x352) and three small ragged cases, float32 and
     bf16, TF32 off."""
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     backbone = build_model(VOC_CONFIG, generator=torch.Generator().manual_seed(SEED)).backbone
-    shapes = fused_block_shapes(backbone, BATCH, SIZE)
+    shapes = block_shapes(backbone, BATCH, SIZE)
     extra = [("unaligned_w11", "fused_inverted_residual", (4, 13, 11, 24), 144, 24, True),
              ("odd_out_w11", "fused_inverted_residual_s2", (4, 22, 22, 16), 96, 24, False),
              ("stem_30x22", "fused_stem_block0", (4, 30, 22, 3), 32, 16, False)]
     gen = torch.Generator(device=device).manual_seed(SEED + 3)
     worst = {k: 0.0 for k in FUSED}
+    worst_bf16 = {k: 0.0 for k in FUSED}  # relative to the largest output
     cases = []
     for blocks, kernel, x_shape, ch, cout, residual in shapes + extra:
         for dt_name, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
@@ -606,16 +626,16 @@ def phase_fused_kernels(device) -> tuple[dict, list]:
             check(rel <= tol, f"{kernel} {blocks} {dt_name}: rel err {rel:.3g} <= {tol}")
             if dtype == torch.float32:
                 worst[kernel] = max(worst[kernel], diff)
+            else:
+                worst_bf16[kernel] = max(worst_bf16[kernel], rel)
             report("fused_kernels", blocks=blocks, kernel=kernel, dtype=dt_name,
                    x=tuple(x_shape), hidden=ch, cout=cout, residual=residual,
-                   tile=fb.pick_tile({"fused_stem_block0": "stem",
-                                      "fused_inverted_residual_s2": "s2"}.get(kernel, "s1"),
-                                     got.shape[1], got.shape[2], x_shape[3], cout),
+                   tile=tile_of(kernel, dt_name, x_shape, ch, cout),
                    max_abs_err=f"{diff:.3g}", rel_err=f"{rel:.3g}", tol=tol)
             del got, want
             if (blocks, kernel, x_shape, ch, cout, residual) in shapes:
                 cases.append((blocks, kernel, x_shape, ch, cout, dt_name, residual, args))
-    return worst, cases
+    return worst, worst_bf16, cases
 
 
 def phase_serve_folded(device) -> tuple[dict, dict]:
@@ -865,10 +885,13 @@ def phase_timing(device, smi: str, state: dict) -> dict:
     # beside its twin (the cuDNN three-conv chain, channels_last, TF32 off:
     # also the library yardstick) and its bound; float32 bounds use the
     # float32 rate outside the tensor cores, bf16 ones the bf16
-    # tensor-core rate
+    # tensor-core rate. Sums per predict: float32 under the contract's
+    # keys, bf16 under bf16_*
     for name in FUSED:
         times[name] = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0,
-                       "ops_ms": 0.0, "bytes_ms": 0.0}
+                       "ops_ms": 0.0, "bytes_ms": 0.0, "bf16_ms": 0.0, "bf16_plain_ms": 0.0,
+                       "bf16_library_ms": 0.0, "bf16_library_device_ms": 0.0,
+                       "bf16_bound_ms": 0.0}
     for blocks, kernel, x_shape, ch, cout, dt_name, residual, args in state["fused_cases"]:
         n = len(blocks.split("/"))
         kernel_ms = cuda_ms(lambda: run_fused(kernel, args, residual), iters=10)
@@ -877,18 +900,34 @@ def phase_timing(device, smi: str, state: dict) -> dict:
         flops, nbytes = fused_work(kernel, x_shape, ch, cout, elem)
         rate = F32_FLOPS if dt_name == "f32" else BF16_FLOPS
         bound, bound_by = bound_ms(flops, nbytes, rate)
+        # the twin's three convs leave the card idle between launches at
+        # the small maps: its kernels' own time from torch.profiler too
+        twin_device = profiled_ms(lambda: run_fused(kernel, args, residual, twin=True), 10)
         report("timing", what=f"{kernel}_{blocks}_b{BATCH}_{dt_name}", kernel_ms=f"{kernel_ms:.4f}",
-               twin_ms=f"{twin_ms:.4f}", bound_ms=f"{bound:.4f}", bound_by=bound_by,
-               gflop=f"{flops / 1e9:.2f}", mb=f"{nbytes / 1e6:.1f}", launches_per_predict=n,
+               twin_ms=f"{twin_ms:.4f}",
+               twin_device_ms="none" if twin_device is None else f"{twin_device:.4f}",
+               bound_ms=f"{bound:.4f}",
+               bound_by=bound_by, gflop=f"{flops / 1e9:.2f}", mb=f"{nbytes / 1e6:.1f}",
+               launches_per_predict=n, tile=tile_of(kernel, dt_name, x_shape, ch, cout),
                card=f"'{smi}'")
-        if dt_name == "f32":  # the JSON line: float32 time per b128 predict
-            t = times[kernel]
+        t = times[kernel]
+        if dt_name == "f32":  # the JSON line: time per b128 predict
             t["ms"] += n * kernel_ms
             t["plain_ms"] += n * twin_ms
             t["library_ms"] += n * twin_ms
             t["bound_ms"] += n * bound
             t["ops_ms"] += n * flops / rate * 1e3
             t["bytes_ms"] += n * nbytes / HBM_BYTES_PER_S * 1e3
+        else:
+            t["bf16_ms"] += n * kernel_ms
+            t["bf16_plain_ms"] += n * twin_ms
+            t["bf16_library_ms"] += n * twin_ms
+            # None once the profiler has missed a twin's kernels
+            if twin_device is None or t["bf16_library_device_ms"] is None:
+                t["bf16_library_device_ms"] = None
+            else:
+                t["bf16_library_device_ms"] += n * twin_device
+            t["bf16_bound_ms"] += n * bound
     for name in FUSED:
         t = times[name]
         t["bound_by"] = "operations" if t.pop("ops_ms") >= t.pop("bytes_ms") else "bytes"
@@ -906,7 +945,7 @@ def main() -> None:
     train_launches, state["train_runs"] = phase_train(device, batches)
     launches.update(train_launches)
     state["batches"] = batches
-    fused_errs, state["fused_cases"] = phase_fused_kernels(device)
+    fused_errs, bf16_errs, state["fused_cases"] = phase_fused_kernels(device)
     max_err.update(fused_errs)
     fused_launches, state["folded"] = phase_serve_folded(device)
     launches.update(fused_launches)
@@ -914,11 +953,16 @@ def main() -> None:
     phase_tools(device)
     times = phase_timing(device, smi, state)
     times["stem_probe"] = stem_times
+    for name in FUSED:
+        times[name]["bf16_max_rel_err"] = bf16_errs[name]
+        times[name]["bf16_source"] = BF16_SOURCES[name]
+    bf16_keys = ("bf16_source", "bf16_ms", "bf16_plain_ms", "bf16_library_ms",
+                 "bf16_library_device_ms", "bf16_bound_ms", "bf16_max_rel_err")
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda", "source": source, "replaces": replaces,
         "launches": launches[name], "max_abs_err": max_err[name],
         **{key: times[name][key] for key in ("ms", "plain_ms", "bound_ms", "bound_by",
-                                             "library_ms")}}
+                                             "library_ms") + bf16_keys if key in times[name]}}
         for name, (source, replaces) in KERNELS.items()]}))
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

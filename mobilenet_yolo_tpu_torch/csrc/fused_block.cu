@@ -7,9 +7,10 @@
 // (body _fused_block_kernel, stride 1) and fused_inverted_residual_s2 (body
 // _fused_block_s2_kernel, stride 2, H and W even). Same contract: x (B, H,
 // W, Cin) NHWC, w1 (Cin, Ch), wdw (3, 3, Ch), w2 (Ch, Cout), float32
-// biases; out (B, H/S, W/S, Cout) in x's type (float32 or bf16). The TPU
-// layout (width padded to the sublane tile, rolls for the column shifts,
-// a second BlockSpec for the halo rows) is not carried over.
+// biases; out (B, H/S, W/S, Cout). This file serves float32 tensors; bf16
+// ones run on the tensor cores in fused_block_bf16.cu. The TPU layout
+// (width padded to the sublane tile, rolls for the column shifts, a second
+// BlockSpec for the halo rows) is not carried over.
 //
 // What bounds it: operations. At the serving shapes (batch 128, 352x352,
 // PERF.md) a block does 5-19 GFLOP on 20-350 MB of input and output, 50 to
@@ -30,8 +31,8 @@
 //    1.13x at stride 2), which costs less than a round trip through HBM;
 //  * the stride is a template parameter, so the stride-2 window walk
 //    compiles to fixed offsets.
-// Later work: wgmma for the two 1x1 products in bf16, TMA for the window,
-// and more than one block per SM at the widest shapes.
+// Later work: TMA for the window, and more than one block per SM at the
+// widest shapes.
 
 #include "fused_common.cuh"
 
@@ -156,10 +157,11 @@ int launch_nj(const BlockArgs& a, dim3 grid, int smem, cudaStream_t stream) {
 
 // Launches on `stream` and returns the CUDA error code (0 on success).
 // The caller checks shapes; th x tw is the output tile (th * tw <= 64).
+// Float32 tensors only.
 extern "C" int myt_fused_block(const void* x, const void* w1, const float* b1, const void* wdw,
                                const float* bdw, const void* w2, const float* b2, void* out,
                                int batch, int h, int w, int cin, int ch, int cout, int stride,
-                               int residual, int th, int tw, int bf16, void* stream) {
+                               int residual, int th, int tw, void* stream) {
   if ((stride != 1 && stride != 2) || th < 1 || tw < 1 || th * tw > kTilePix) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -170,8 +172,5 @@ extern "C" int myt_fused_block(const void* x, const void* w1, const float* b1, c
   const dim3 grid(tiles_h * tiles_w, batch);
   const int smem = block_smem_floats(stride, th, tw, cin, cout) * static_cast<int>(sizeof(float));
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (stride == 1) {
-    return bf16 ? launch_nj<1, __nv_bfloat16>(a, grid, smem, st) : launch_nj<1, float>(a, grid, smem, st);
-  }
-  return bf16 ? launch_nj<2, __nv_bfloat16>(a, grid, smem, st) : launch_nj<2, float>(a, grid, smem, st);
+  return stride == 1 ? launch_nj<1, float>(a, grid, smem, st) : launch_nj<2, float>(a, grid, smem, st);
 }

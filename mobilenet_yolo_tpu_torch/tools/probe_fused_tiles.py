@@ -1,0 +1,167 @@
+"""The bf16 fused-block kernel under its candidate launch plans, on the card.
+
+For each distinct block shape of the folded VOC backbone that runs the
+stride-1 or stride-2 block kernel (batch 128, 352x352 by default), times
+the bf16 kernel (``csrc/fused_block_bf16.cu``) under the plan that
+``kernels/fused_block.py:plan_bf16`` picks and under the next best plans
+of its cost model with another tile, warp tiling or occupancy (``--top``
+of each occupancy), beside the cuDNN twin, and checks each against the twin
+within ``BF16_REL_TOL``. Times are CUDA events around the calls (``ms``)
+and the kernels' own device time from ``torch.profiler`` (``kernel_ms``).
+Each plan's modelled cycles stand beside its time: the measurements that
+the model's constants are held to.
+
+    python -m mobilenet_yolo_tpu_torch.tools.probe_fused_tiles [--batch 128] \\
+        [--size 352] [--top 3] [--iters 10] [--device cuda|cpu] [--json]
+
+On ``--device cpu`` the wrapper runs its twin (CPU tensors never reach a
+kernel), so a CPU run checks the tool's plumbing, not the kernel.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+
+import torch
+
+from mobilenet_yolo_tpu_torch.config import VOC_CONFIG
+from mobilenet_yolo_tpu_torch.kernels import fused_block as fb
+from mobilenet_yolo_tpu_torch.models import build_model
+from mobilenet_yolo_tpu_torch.tools import device_name, tool_device
+from mobilenet_yolo_tpu_torch.utils.profiling import device_ms
+
+
+def block_shapes(backbone, batch: int, size: int) -> list[tuple]:
+    """(blocks, kernel, x shape, hidden, cout, residual) of every fused
+    launch of the folded ``backbone`` at ``size``, one entry per distinct
+    shape; the first is the stem kernel's."""
+    b0 = backbone.block0
+    out = {("fused_stem_block0", (batch, size, size, 3), backbone.stem.conv.out_channels,
+            b0.project.conv.out_channels, False): ["stem+0"]}
+    h, c = size // 2, b0.project.conv.out_channels
+    for idx in range(1, backbone.num_blocks):
+        blk = getattr(backbone, f"block{idx}")
+        stride = blk.depthwise.conv.stride[0]
+        kernel = "fused_inverted_residual_s2" if stride == 2 else "fused_inverted_residual"
+        key = (kernel, (batch, h, h, c), blk.expand.conv.out_channels,
+               blk.project.conv.out_channels, blk.identity)
+        out.setdefault(key, []).append(f"block{idx}")
+        h, c = h // stride, blk.project.conv.out_channels
+    return [("/".join(names), *key) for key, names in out.items()]
+
+
+def block_args(gen: torch.Generator, x_shape: tuple, ch: int, cout: int, dtype,
+               device) -> list[torch.Tensor]:
+    """Seeded block inputs, weights scaled so activations keep unit size;
+    float32 biases."""
+    cin = x_shape[3]
+
+    def randn(*shape, scale=1.0):
+        return scale * torch.randn(shape, generator=gen, device=device)
+
+    args = [randn(*x_shape), randn(cin, ch, scale=cin ** -0.5), randn(ch, scale=0.1),
+            randn(3, 3, ch, scale=1 / 3), randn(ch, scale=0.1), randn(ch, cout, scale=ch ** -0.5),
+            randn(cout, scale=0.1)]
+    return [a.to(dtype) if a.dim() > 1 else a for a in args]
+
+
+def candidates(stride: int, batch: int, ho: int, wo: int, cin: int, ch: int, cout: int,
+               top: int) -> list[tuple[float, fb.Bf16Plan]]:
+    """The model's best plan first, then, for one and for two blocks per SM,
+    the next best of each other (tiles per image, warp tiling): up to
+    ``top`` plans of each occupancy."""
+    seen, out, per_occupancy = set(), [], {}
+    for cost, plan in fb.bf16_plans(stride, batch, ho, wo, cin, ch, cout):
+        per_sm = fb._bf16_blocks_per_sm(plan.mw, plan.nw, plan.warps, plan.smem)
+        key = (per_sm, -(-ho // plan.th) * -(-wo // plan.tw), plan.mw, plan.nw, plan.warps)
+        if key not in seen and per_occupancy.get(per_sm, 0) < top:
+            seen.add(key)
+            per_occupancy[per_sm] = per_occupancy.get(per_sm, 0) + 1
+            out.append((cost, plan))
+    return out
+
+
+def kernel_ms(fn, iters: int) -> float | None:
+    """Device time per call of ``fn``: the CUDA kernels that torch.profiler
+    records over ``iters`` calls, without the host's gaps between them;
+    None if the profiler recorded no kernel."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(e.device_time_total for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA)
+    return total / iters / 1e3 if total > 0 else None
+
+
+def run(batch: int = 128, size: int = 352, top: int = 3, iters: int = 10,
+        device="cuda") -> dict:
+    device = tool_device(device)
+    if device.type == "cuda":
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+    backbone = build_model(VOC_CONFIG, device=device,
+                           generator=torch.Generator().manual_seed(0)).backbone
+    gen = torch.Generator(device=device).manual_seed(5)
+    shapes = []
+    for blocks, kernel, x_shape, ch, cout, residual in block_shapes(backbone, batch, size)[1:]:
+        stride = 2 if kernel.endswith("_s2") else 1
+        args = block_args(gen, x_shape, ch, cout, torch.bfloat16, device)
+        twin = lambda: fb.inverted_residual_reference(*args, residual=residual, stride=stride)
+        want = twin()
+        scale = float(want.float().abs().max())
+        ho, wo = x_shape[1] // stride, x_shape[2] // stride
+        plans = []
+        for cost, plan in candidates(stride, batch, ho, wo, x_shape[3], ch, cout, top):
+            if device.type == "cuda":
+                run_plan = lambda: fb._launch_block(*args, residual, stride, plan=plan)
+            else:
+                run_plan = twin
+            got = run_plan()
+            err = float((got.float() - want.float()).abs().max()) / scale
+            if not err <= fb.BF16_REL_TOL:
+                raise RuntimeError(f"{blocks} plan {plan}: rel err {err} > {fb.BF16_REL_TOL}")
+            plans.append({"plan": plan._asdict(), "tiles": -(-ho // plan.th) * -(-wo // plan.tw),
+                          "model_cycles": cost, "rel_err": err,
+                          "ms": device_ms(run_plan, device=device, iters=iters),
+                          "kernel_ms": (kernel_ms(run_plan, iters) if device.type == "cuda"
+                                        else None)})
+        shapes.append({"blocks": blocks, "stride": stride, "x": list(x_shape), "hidden": ch,
+                       "cout": cout, "twin_ms": device_ms(twin, device=device, iters=iters),
+                       "twin_kernel_ms": kernel_ms(twin, iters) if device.type == "cuda" else None,
+                       "plans": plans})
+        del args, want
+    return {"device": device_name(device), "batch": batch, "size": size, "shapes": shapes}
+
+
+def main(argv=None) -> dict:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--batch", type=int, default=128)
+    ap.add_argument("--size", type=int, default=352)
+    ap.add_argument("--top", type=int, default=3)
+    ap.add_argument("--iters", type=int, default=10)
+    ap.add_argument("--device", default="cuda")
+    ap.add_argument("--json", action="store_true", help="print one JSON object")
+    args = ap.parse_args(argv)
+    result = run(args.batch, args.size, args.top, args.iters, args.device)
+    if args.json:
+        print(json.dumps(result))
+    else:
+        print(f"{result['device']}: bf16 block kernel plans, b{result['batch']} "
+              f"{result['size']}x{result['size']}")
+        for s in result["shapes"]:
+            print(f"{s['blocks']} s{s['stride']} x{tuple(s['x'])} ch{s['hidden']} "
+                  f"cout{s['cout']}: twin {s['twin_ms']:.4f} ms (kernels {s['twin_kernel_ms']})")
+            for p in s["plans"]:
+                q = p["plan"]
+                print(f"    {q['th']}x{q['tw']} ({q['mw']},{q['nw']},{q['warps']}) "
+                      f"tiles {p['tiles']} smem {q['smem']} model {p['model_cycles']:.0f} "
+                      f"ms {p['ms']:.4f} (kernel {p['kernel_ms']}) rel_err {p['rel_err']:.3g}")
+    return result
+
+
+if __name__ == "__main__":
+    main()

@@ -281,12 +281,17 @@ def test_geometry_step_runs_each_mode(cuda, fused_aug):
 
 # kernel vs twin, relative to the largest output. float32: only the order
 # of summation differs (the kernel sums the project over 32-channel
-# chunks; up to 960 terms at 6e-8 each is 5.8e-5 at worst). bf16: the
-# twin rounds the hidden tensor, the depthwise output and each conv's
-# output to bf16 (2^-9 relative each), the kernel only its output, and the
-# two outputs may then sit one bf16 spacing (2^-7 relative) apart.
+# chunks; up to 960 terms at 6e-8 each is 5.8e-5 at worst). bf16
+# (``fb.BF16_REL_TOL``): the block kernel rounds where pallas_fused.py does
+# (float32 hidden and depthwise, the depthwise output rounded to bf16 for
+# the project, one output rounding); the twin also rounds the hidden
+# tensor, the project's output and the residual sum (2^-9 relative each).
+# A hidden value rounded differently moves a depthwise output by up to one
+# bf16 spacing, the project sums Ch such moves of random sign, and the two
+# outputs may then sit one bf16 spacing of the largest (2^-7) apart plus a
+# few roundings. The stem kernel keeps float32 inside and rounds once.
 FUSED_F32_REL_TOL = 1e-4
-FUSED_BF16_REL_TOL = 3e-2
+FUSED_BF16_REL_TOL = fb.BF16_REL_TOL
 
 
 def _fused_args(seed, b, h, w, cin, ch, cout, dtype, device, stem=False):
@@ -309,12 +314,14 @@ def _assert_fused_close(got, want, dtype):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape,stride,residual", [
-    ((2, 16, 24, 24, 144, 24), 1, True),     # aligned, hidden a multiple of the chunk
-    ((3, 13, 11, 24, 50, 24), 1, True),      # unaligned width and hidden width
+    ((2, 16, 24, 24, 144, 24), 1, True),     # Cin 24: K padded to 32; Ch 144, Cout 24
+    ((3, 13, 11, 24, 50, 24), 1, True),      # unaligned width, a ragged last chunk
     ((2, 11, 11, 160, 960, 320), 1, False),  # block 16's widths, output width 11
+    ((2, 11, 11, 160, 960, 160), 1, True),   # blocks 14-15: Cout 160, residual
     ((2, 44, 44, 8, 48, 16), 2, False),      # ragged stride-2 tiles
     ((3, 22, 22, 96, 576, 160), 2, False),   # block 13: 22 -> 11
-    ((1, 10, 6, 20, 70, 30), 2, False),      # channels off every multiple of 4
+    ((2, 20, 14, 16, 96, 24), 2, False),     # Cin 16 at stride 2, ragged both ways
+    ((1, 10, 6, 20, 70, 30), 2, False),      # channels off every multiple of 4 or 8
 ])
 def test_fused_block_kernel_matches_twin(cuda, shape, stride, residual, dtype):
     args = _fused_args(sum(shape), *shape, dtype, cuda)
@@ -326,6 +333,44 @@ def test_fused_block_kernel_matches_twin(cuda, shape, stride, residual, dtype):
     want = fb.inverted_residual_reference(*args, residual=residual, stride=stride)
     assert got.shape == want.shape
     _assert_fused_close(got, want, dtype)
+
+
+def test_bf16_kernel_takes_a_misaligned_base(cuda):
+    """A contiguous x whose storage starts 2 bytes off a 16-byte boundary
+    takes the element loads instead of the 16-byte copies."""
+    args = _fused_args(7, 2, 16, 16, 32, 96, 32, torch.bfloat16, cuda)
+    flat = torch.empty(args[0].numel() + 1, dtype=torch.bfloat16, device=cuda)
+    args[0] = flat[1:].view(args[0].shape).copy_(args[0])
+    assert args[0].is_contiguous() and args[0].data_ptr() % 16 == 2
+    got = fb.fused_inverted_residual(*args)
+    _assert_fused_close(got, fb.inverted_residual_reference(*args), torch.bfloat16)
+
+
+@pytest.mark.parametrize("stride", [1, 2])
+def test_each_dtype_launches_its_own_block_kernel(cuda, monkeypatch, stride):
+    """bf16 reaches only the tensor-core kernel and float32 only the
+    float32 one: the C entry points a call reaches, and the launch count."""
+    lib, calls = fb._build.load(), []
+
+    class Spy:
+        def __getattr__(self, name):
+            def call(*a):
+                calls.append(name)
+                return getattr(lib, name)(*a)
+            return call
+
+    monkeypatch.setattr(fb._build, "load", lambda: Spy())
+    wrapper = fb.fused_inverted_residual if stride == 1 else fb.fused_inverted_residual_s2
+    for dtype, entry in ((torch.bfloat16, "myt_fused_block_bf16"),
+                         (torch.float32, "myt_fused_block")):
+        args = _fused_args(stride, 2, 22, 22, 32, 192, 32, dtype, cuda)
+        calls.clear()
+        before = wrapper.launches
+        got = wrapper(*args)
+        torch.cuda.synchronize()
+        assert calls == [entry] and wrapper.launches == before + 1 and got.dtype == dtype
+        want = fb.inverted_residual_reference(*args, residual=stride == 1, stride=stride)
+        _assert_fused_close(got, want, dtype)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -7,6 +7,11 @@ package, on the CPU.
   1e-4 for the stem); that file pins those references to the Pallas
   kernels. The twins are reached through the public wrappers, which run
   them for CPU tensors and count no launch.
+* The twins in bf16 against the Pallas kernels run in interpret mode in
+  bf16: the tolerance the card holds the bf16 block kernel to
+  (``BF16_REL_TOL``) admits the Pallas kernel's rounding points, which the
+  card kernel shares. The bf16 kernel's launch plans at every block of the
+  served model.
 * ``fold_batchnorm`` against JAX's: the folded state dicts are equal up to
   an ulp or two of float32.
 * The folded model's heads against JAX ``model.apply(fold_batchnorm(v))``
@@ -26,7 +31,9 @@ import pytest
 import torch
 
 from mobilenet_yolo_tpu.eval.detector import make_predict_fn as jax_make_predict_fn
-from mobilenet_yolo_tpu.kernels.pallas_fused import xla_inverted_residual, xla_stem_block0
+from mobilenet_yolo_tpu.kernels.pallas_fused import (fused_inverted_residual,
+                                                     fused_inverted_residual_s2,
+                                                     xla_inverted_residual, xla_stem_block0)
 from mobilenet_yolo_tpu.models import build_model as jax_build_model
 from mobilenet_yolo_tpu.models.bn_fold import fold_batchnorm as jax_fold_batchnorm
 from mobilenet_yolo_tpu_torch.convert import flax_to_state_dict
@@ -158,6 +165,81 @@ def test_pick_tile_fits_every_block_of_the_served_model():
     assert fb.pick_tile("s1", 88, 88, 24, 24) == (8, 8)
     assert fb.pick_tile("s2", 88, 88, 16, 24) == (8, 8)
     assert fb.pick_tile("s1", 11, 11, 160, 320) == (4, 11)
+
+
+# the stride-1 and stride-2 blocks of the VOC backbone at 352x352, batch
+# 128: (stride, output H = W, Cin, hidden, Cout)
+SERVED_BLOCKS = [(2, 88, 16, 96, 24), (1, 88, 24, 144, 24), (2, 44, 24, 144, 32),
+                 (1, 44, 32, 192, 32), (2, 22, 32, 192, 64), (1, 22, 64, 384, 64),
+                 (1, 22, 64, 384, 96), (1, 22, 96, 576, 96), (2, 11, 96, 576, 160),
+                 (1, 11, 160, 960, 160), (1, 11, 160, 960, 320)]
+
+
+@pytest.mark.parametrize("stride,ho,cin,ch,cout", SERVED_BLOCKS)
+def test_bf16_plan_fits_every_block_of_the_served_model(stride, ho, cin, ch, cout):
+    """The bf16 kernel's plan: a tile of at most 256 pixels whose shared
+    memory fits a Hopper block, a project warp grid that covers the tile's
+    m16 rows and Cout's n8 columns within the accumulator budget, K and the
+    hidden chunk in whole k16 steps; an 11x11 output (blocks 13-16, the
+    widest weights, restaged whole by every tile) in one or two tiles."""
+    plan = fb.plan_bf16(stride, 128, ho, ho, cin, ch, cout)
+    assert (plan.th, plan.tw) == fb.pick_tile(f"s{stride}_bf16", ho, ho, cin, cout, ch, 128)
+    assert 1 <= plan.th * plan.tw <= fb.BF16_MAX_TILE and plan.th <= ho and plan.tw <= ho
+    assert plan.smem == fb._bf16_smem_bytes(stride, plan.th, plan.tw, cin, cout) <= fb.SMEM_LIMIT
+    assert (plan.mw, plan.nw, plan.warps) in fb.BF16_CONFIGS
+    assert 4 * plan.mw * plan.nw <= fb.BF16_ACC_REGS
+    m_tiles, n_tiles = -(-plan.th * plan.tw // 16), -(-cout // 8)
+    warps_n = -(-n_tiles // plan.nw)
+    assert warps_n <= plan.warps and plan.warps // warps_n * plan.mw >= m_tiles
+    assert fb.BF16_CHUNK % 16 == 0 and ch % fb.BF16_CHUNK == 0
+    tiles = -(-ho // plan.th) * -(-ho // plan.tw)
+    if ho == 11:
+        assert tiles <= 2
+
+
+def test_bf16_config_covers_every_tile_up_to_96_pixels():
+    """Any Cout up to MAX_COUT has a warp tiling for tiles of up to 6 m16
+    tiles, so every shape the wrappers accept has a plan."""
+    for cout in range(1, fb.MAX_COUT + 1):
+        for pixels in (1, 16, 50, 96):
+            mw, nw, warps = fb.bf16_config(pixels, cout)
+            assert 4 * mw * nw <= fb.BF16_ACC_REGS
+    plan = fb.plan_bf16(2, 1, 5, 3, 20, 70, 30)  # ragged everything, a 5x3 output
+    assert plan.th <= 5 and plan.tw <= 3
+
+
+@pytest.mark.parametrize("shape,residual,stride", [
+    ((2, 16, 24, 24, 96, 24), True, 1),    # test_fused_s1_matches_xla
+    ((2, 16, 24, 24, 96, 24), False, 1),
+    ((1, 8, 11, 8, 48, 8), True, 1),       # test_fused_s1_unaligned_width
+    ((2, 32, 48, 16, 96, 24), False, 2),   # test_fused_s2_matches_xla
+    ((1, 44, 44, 8, 48, 16), False, 2),    # test_fused_s2_odd_tiles
+])
+def test_bf16_tolerance_admits_the_pallas_rounding_points(shape, residual, stride):
+    """The Pallas kernels in bf16 (interpret mode): float32 hidden tensor and
+    depthwise, the depthwise output rounded to bf16, one output rounding,
+    the points the card's bf16 kernel rounds at. Against the bf16 twin they
+    stay within BF16_REL_TOL of the largest output (seen: 0.3-0.5%), and
+    both sit within it of the float32 twin."""
+    args = _block_args(0, *shape)
+    jargs = [jnp.asarray(a, jnp.bfloat16) if a.ndim > 1 else jnp.asarray(a) for a in args]
+    if stride == 1:
+        pallas = fused_inverted_residual(*jargs, residual=residual, interpret=True)
+    else:
+        pallas = fused_inverted_residual_s2(*jargs, interpret=True)
+    assert pallas.dtype == jnp.bfloat16
+    pallas = np.asarray(pallas.astype(jnp.float32))
+    targs = [torch.from_numpy(a).to(torch.bfloat16) if a.ndim > 1 else torch.from_numpy(a)
+             for a in args]
+    twin = fb.inverted_residual_reference(*targs, residual=residual, stride=stride)
+    assert twin.dtype == torch.bfloat16
+    twin = twin.float().numpy()
+    f32 = fb.inverted_residual_reference(*map(torch.from_numpy, args), residual=residual,
+                                         stride=stride).numpy()
+    scale = np.abs(twin).max()
+    assert np.abs(pallas - twin).max() <= fb.BF16_REL_TOL * scale
+    assert np.abs(pallas - f32).max() <= fb.BF16_REL_TOL * scale
+    assert np.abs(twin - f32).max() <= fb.BF16_REL_TOL * scale
 
 
 # ------------------------------------------------------ the folded model --

@@ -26,8 +26,9 @@ from jax.experimental.pallas import tpu as pltpu
 from mobilenet_yolo_tpu_torch.config import TRAIN_BUCKETS, VOC_CONFIG
 from mobilenet_yolo_tpu_torch.kernels.stem_probe import COUT, stem_probe, stem_probe_reference
 from mobilenet_yolo_tpu_torch.models.mbv2_yolo import MBv2YOLO
+from mobilenet_yolo_tpu_torch.kernels import fused_block as fb
 from mobilenet_yolo_tpu_torch.tools import (bench_geometry, bench_train, probe_aug_kernels,
-                                            probe_stem, probe_stem_cuda)
+                                            probe_fused_tiles, probe_stem, probe_stem_cuda)
 from mobilenet_yolo_tpu_torch.train import make_loss_fn
 from mobilenet_yolo_tpu_torch.utils.profiling import device_ms
 
@@ -185,6 +186,7 @@ def test_probe_tools_run_on_the_cpu_when_asked():
     (probe_stem, ["--batch", "1", "--size", "16"]),
     (probe_stem_cuda, ["--size", "16", "--batch", "1"]),
     (probe_aug_kernels, ["--size", "16"]),
+    (probe_fused_tiles, ["--batch", "1", "--size", "32"]),
 ])
 def test_tools_raise_without_a_card(tool, argv):
     """Every tool runs on the card by default and refuses the CPU unless
@@ -195,6 +197,23 @@ def test_tools_raise_without_a_card(tool, argv):
         tool.main(argv)
     with pytest.raises(RuntimeError, match="needs a CUDA device"):
         device_ms(lambda: None, device="cuda", iters=1)
+
+
+def test_probe_fused_tiles_runs_on_the_cpu_when_asked():
+    """The plan probe at 64x64: every distinct stride-1 and stride-2 block
+    shape of the folded VOC backbone, each with its model-ranked plans (the
+    picked one first), each within BF16_REL_TOL of the twin (on the CPU the
+    wrapper runs the twin itself)."""
+    out = probe_fused_tiles.main(["--device", "cpu", "--batch", "1", "--size", "64", "--iters", "1",
+                                  "--top", "2"])
+    assert [s["blocks"] for s in out["shapes"]][:3] == ["block1", "block2", "block3"]
+    assert len(out["shapes"]) == 11 and out["shapes"][-1]["cout"] == 320
+    for shape in out["shapes"]:
+        picked = fb.plan_bf16(shape["stride"], 1, shape["x"][1] // shape["stride"],
+                              shape["x"][2] // shape["stride"], shape["x"][3], shape["hidden"],
+                              shape["cout"])
+        assert shape["plans"][0]["plan"] == picked._asdict()
+        assert all(p["rel_err"] == 0.0 for p in shape["plans"])
 
 
 def test_config_equals_the_voc_yaml():
