@@ -8,8 +8,9 @@ Phases, one output line each (any failure raises and exits non-zero):
 1. device   — refuses to run without CUDA; prints the card's name and power
               limit as ``nvidia-smi`` reports them.
 2. build    — compiles ``mobilenet_yolo_tpu_torch/csrc/*.cu`` with nvcc; prints
-              ptxas's registers and spills of every instance of the bf16
-              tensor-core block kernel (``fused_block_bf16.cu``).
+              ptxas's registers and spills of every instance of the two
+              tensor-core block kernels (``fused_block_bf16.cu``,
+              ``fused_block.cu``).
 3. kernel   — the NMS suppression kernel against its plain twin on the card,
               bit-equal: random (B=128, K=256), K=60 (64x64 input), chain.
 4. serve    — the full-width VOC MBv2-YOLO (random weights from a seeded
@@ -36,10 +37,12 @@ Phases, one output line each (any failure raises and exits non-zero):
               mode draws one noise stream from one seed).
 7. fused_kernels — the three fused-block kernels of the BatchNorm-folded
               forward (``fused_stem_block0``, ``fused_inverted_residual_s2``,
-              ``fused_inverted_residual``; bf16 blocks run the tensor-core
-              kernel) against their cuDNN twins, TF32 off, in float32 and
-              bf16, at the batch-128 352x352 shape of every backbone block,
-              an unaligned width and odd output widths.
+              ``fused_inverted_residual``; the blocks run on the tensor
+              cores, float32 in three TF32 passes) against their cuDNN
+              twins, TF32 off, in float32 and bf16, at the batch-128
+              352x352 shape of every backbone block, an unaligned width and
+              odd output widths; and the float32 block kernel against the
+              float64 twin at block 16's shape.
 8. serve_folded — the same VOC model folded (``fold_batchnorm``) and served
               through ``make_predict_fn``: batch 1 and 128 at 352x352 in
               float32, uint8 normalize and bf16. Checks each request
@@ -66,7 +69,10 @@ Phases, one output line each (any failure raises and exits non-zero):
               dtype, and each kernel's time beside its twin's and its bound
               (each fused kernel at every block shape, float32 and bf16).
 
-The line before the last also carries, for the three fused kernels, their
+The line before the last also carries, for the three fused kernels, the
+float32 twins' kernels alone per b128 predict (``library_device_ms``, from
+``torch.profiler``) and the float32 bound on CUDA cores (``fma_bound_ms``;
+``bound_ms`` is the block kernels' own route, three TF32 passes), their
 bf16 sums per b128 predict (``bf16_ms``, ``bf16_plain_ms``,
 ``bf16_library_ms``; ``bf16_library_device_ms``, the twins' kernels alone
 from ``torch.profiler``; ``bf16_bound_ms``) and worst bf16 error relative
@@ -106,7 +112,7 @@ from mobilenet_yolo_tpu_torch.train import (GEOMETRY_BATCH_KEYS, create_train_st
                                             make_geometry_train_step, make_train_step,
                                             random_geometry_batch)
 from mobilenet_yolo_tpu_torch.utils.profiling import (BF16_FLOPS, F32_FLOPS, HBM_BYTES_PER_S,
-                                                      bound_ms, device_ms)
+                                                      TF32_FLOPS, bound_ms, device_ms)
 
 SEED = 0
 BATCH = 128
@@ -152,7 +158,7 @@ STEM_ITERS = 20
 # remat vs plain first loss on the same weights and batch, float32 with
 # TF32 off: only the backward is scheduled differently
 REMAT_LOSS_RTOL = 1e-5
-# probe_stem's b and c folds against formulation a, all three bf16 cuDNN
+# probe_stem's b, c and d folds against formulation a, all four bf16 cuDNN
 # convs of the same products summed in other orders: one bf16 rounding
 # may tip, at most 2^-7 of the largest output
 STEM_FOLD_REL_TOL = 2.0 ** -7
@@ -181,8 +187,9 @@ FUSED = {"fused_inverted_residual": fb.fused_inverted_residual,
          "fused_stem_block0": fb.fused_stem_block0}
 LAUNCH_COUNTERS = (suppress, slot_aug, aug_compose, *FUSED.values(), stem_probe)
 # fused kernel vs twin, relative to the largest output. float32: only the
-# order of summation differs (the kernel sums the project over 32-channel
-# chunks; up to 960 terms at 6e-8 each is 5.8e-5 at worst). bf16
+# order of summation differs (the block kernel's three TF32 passes keep
+# float32's accuracy and sum the project over 24-channel chunks; up to 960
+# terms at 6e-8 each is 5.8e-5 at worst). bf16
 # (``fb.BF16_REL_TOL``): the block kernel rounds where pallas_fused.py does
 # (float32 hidden and depthwise, the depthwise output rounded to bf16, one
 # output rounding), the twin also rounds the hidden tensor, the project's
@@ -191,6 +198,10 @@ LAUNCH_COUNTERS = (suppress, slot_aug, aug_compose, *FUSED.values(), stem_probe)
 # stem kernel keeps float32 inside and rounds its output once
 FUSED_F32_REL_TOL = 1e-4
 FUSED_BF16_REL_TOL = fb.BF16_REL_TOL
+# the float32 block kernel against the float64 twin, relative to the
+# largest output: float32's own rounding (a few 1e-7; one TF32 pass would
+# sit at 2-4e-4)
+FUSED_F64_REL_TOL = 1e-5
 # folded and fused heads vs the unfolded model's on the served (calibrated)
 # weights in float32: the calibrated random network amplifies float32
 # rounding ~450-fold (2.7e-5 against float64), and folding rounds each
@@ -242,18 +253,20 @@ def phase_build() -> None:
     log = lib.with_suffix(".log").read_text()
     ptxas = [line.strip() for line in log.splitlines() if "registers" in line or "spill" in line]
     report("build", seconds=f"{seconds:.2f}", library=lib.name, ptxas=" | ".join(ptxas))
-    # the bf16 block kernel's instances <S, MW, NW, warps>: registers, spills
-    instance = None
-    for line in log.split("== fused_block_bf16.cu")[1].split("\n== ")[0].splitlines():
-        if "Compiling entry function" in line:
-            instance = line.split("fused_block_bf16_kernelI")[1].split("EEEv")[0]
-            instance = "<" + ",".join(instance.replace("Li", " ").replace("E", "").split()) + ">"
-        elif "spill stores" in line:
-            spill_bytes = int(line.split(",")[1].split()[0])
-        elif "Used" in line and instance:
-            report("build", bf16_kernel=instance, registers=int(line.split("Used ")[1].split()[0]),
-                   spill_store_bytes=spill_bytes)
-            instance = None
+    # the block kernels' instances <S, MW, NW, warps>: registers, spills
+    for source, symbol, key in (("fused_block_bf16.cu", "fused_block_bf16_kernelI", "bf16_kernel"),
+                                ("fused_block.cu", "fused_block_f32_kernelI", "f32_kernel")):
+        instance = None
+        for line in log.split(f"== {source}")[1].split("\n== ")[0].splitlines():
+            if "Compiling entry function" in line:
+                instance = line.split(symbol)[1].split("EEEv")[0]
+                instance = "<" + ",".join(instance.replace("Li", " ").replace("E", "").split()) + ">"
+            elif "spill stores" in line:
+                spill_bytes = int(line.split(",")[1].split()[0])
+            elif "Used" in line and instance:
+                report("build", **{key: instance}, registers=int(line.split("Used ")[1].split()[0]),
+                       spill_store_bytes=spill_bytes)
+                instance = None
 
 
 def random_over(gen: torch.Generator, b: int, k: int, density: float, device):
@@ -635,6 +648,23 @@ def phase_fused_kernels(device) -> tuple[dict, dict, list]:
             del got, want
             if (blocks, kernel, x_shape, ch, cout, residual) in shapes:
                 cases.append((blocks, kernel, x_shape, ch, cout, dt_name, residual, args))
+
+    # the float32 block kernel's three TF32 passes against the float64 twin
+    # at block 16's widths (Cin 160, Ch 960, Cout 320), beside the float32
+    # twin's own error
+    for blocks, kernel, x_shape, ch, cout, dt_name, residual, args in cases:
+        if dt_name == "f32" and kernel == "fused_inverted_residual" and cout == 320:
+            want = run_fused(kernel, [a.double() for a in args], residual, twin=True)
+            scale = float(want.abs().max())
+            err = float((run_fused(kernel, args, residual).double() - want).abs().max()) / scale
+            twin_err = float((run_fused(kernel, args, residual, twin=True).double()
+                              - want).abs().max()) / scale
+            check(err <= FUSED_F64_REL_TOL,
+                  f"{blocks} f32 kernel vs float64 twin: {err:.3g} <= {FUSED_F64_REL_TOL}")
+            report("fused_kernels", blocks=blocks, kernel=kernel, dtype="f32", x=tuple(x_shape),
+                   vs="float64 twin", rel_err=f"{err:.3g}", f32_twin_rel_err=f"{twin_err:.3g}",
+                   tol=FUSED_F64_REL_TOL)
+            del want
     return worst, worst_bf16, cases
 
 
@@ -793,8 +823,8 @@ def phase_tools(device) -> dict:
     aug = probe_aug_kernels.main([])
     stem = probe_stem.main(["--iters", str(TOOLS_ITERS)])
     fold_tol = STEM_FOLD_REL_TOL * stem["a_max_abs"]
-    check(max(stem["b_max_abs_diff"], stem["c_max_abs_diff"]) <= fold_tol,
-          f"probe_stem: the b and c folds give formulation a's output within {fold_tol}")
+    check(max(stem["b_max_abs_diff"], stem["c_max_abs_diff"], stem["d_max_abs_diff"]) <= fold_tol,
+          f"probe_stem: the b, c and d folds give formulation a's output within {fold_tol}")
     torch.cuda.synchronize()
     launches = {"slot_aug": slot_aug.launches, "aug_compose": aug_compose.launches}
     check(all(n > 0 for n in launches.values()), f"the tools launched the aug kernels: {launches}")
@@ -883,12 +913,14 @@ def phase_timing(device, smi: str, state: dict) -> dict:
 
     # each fused kernel at every block shape of the folded b128 predict,
     # beside its twin (the cuDNN three-conv chain, channels_last, TF32 off:
-    # also the library yardstick) and its bound; float32 bounds use the
-    # float32 rate outside the tensor cores, bf16 ones the bf16
-    # tensor-core rate. Sums per predict: float32 under the contract's
-    # keys, bf16 under bf16_*
+    # also the library yardstick) and its bound; bf16 bounds use the bf16
+    # tensor-core rate; float32 bounds the route of the kernel (the block
+    # kernels: three TF32 passes at the TF32 rate; the stem: CUDA cores),
+    # with the CUDA-core bound beside them. Sums per predict: float32
+    # under the contract's keys, bf16 under bf16_*
     for name in FUSED:
-        times[name] = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0,
+        times[name] = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
+                       "library_device_ms": 0.0, "bound_ms": 0.0, "fma_bound_ms": 0.0,
                        "ops_ms": 0.0, "bytes_ms": 0.0, "bf16_ms": 0.0, "bf16_plain_ms": 0.0,
                        "bf16_library_ms": 0.0, "bf16_library_device_ms": 0.0,
                        "bf16_bound_ms": 0.0}
@@ -898,15 +930,19 @@ def phase_timing(device, smi: str, state: dict) -> dict:
         twin_ms = cuda_ms(lambda: run_fused(kernel, args, residual, twin=True), iters=10)
         elem = 4 if dt_name == "f32" else 2
         flops, nbytes = fused_work(kernel, x_shape, ch, cout, elem)
-        rate = F32_FLOPS if dt_name == "f32" else BF16_FLOPS
-        bound, bound_by = bound_ms(flops, nbytes, rate)
+        tf32x3 = dt_name == "f32" and kernel != "fused_stem_block0"
+        # three TF32 passes do 3x the operations at the TF32 rate
+        ops, rate = ((3 * flops, TF32_FLOPS) if tf32x3
+                     else (flops, F32_FLOPS if dt_name == "f32" else BF16_FLOPS))
+        bound, bound_by = bound_ms(ops, nbytes, rate)
+        fma_bound = bound_ms(flops, nbytes, F32_FLOPS)[0]
         # the twin's three convs leave the card idle between launches at
         # the small maps: its kernels' own time from torch.profiler too
         twin_device = profiled_ms(lambda: run_fused(kernel, args, residual, twin=True), 10)
         report("timing", what=f"{kernel}_{blocks}_b{BATCH}_{dt_name}", kernel_ms=f"{kernel_ms:.4f}",
                twin_ms=f"{twin_ms:.4f}",
                twin_device_ms="none" if twin_device is None else f"{twin_device:.4f}",
-               bound_ms=f"{bound:.4f}",
+               bound_ms=f"{bound:.4f}", fma_bound_ms=f"{fma_bound:.4f}",
                bound_by=bound_by, gflop=f"{flops / 1e9:.2f}", mb=f"{nbytes / 1e6:.1f}",
                launches_per_predict=n, tile=tile_of(kernel, dt_name, x_shape, ch, cout),
                card=f"'{smi}'")
@@ -915,8 +951,14 @@ def phase_timing(device, smi: str, state: dict) -> dict:
             t["ms"] += n * kernel_ms
             t["plain_ms"] += n * twin_ms
             t["library_ms"] += n * twin_ms
+            # None once the profiler has missed a twin's kernels
+            if twin_device is None or t["library_device_ms"] is None:
+                t["library_device_ms"] = None
+            else:
+                t["library_device_ms"] += n * twin_device
             t["bound_ms"] += n * bound
-            t["ops_ms"] += n * flops / rate * 1e3
+            t["fma_bound_ms"] += n * fma_bound
+            t["ops_ms"] += n * ops / rate * 1e3
             t["bytes_ms"] += n * nbytes / HBM_BYTES_PER_S * 1e3
         else:
             t["bf16_ms"] += n * kernel_ms
@@ -962,7 +1004,8 @@ def main() -> None:
         "name": name, "route": "cuda", "source": source, "replaces": replaces,
         "launches": launches[name], "max_abs_err": max_err[name],
         **{key: times[name][key] for key in ("ms", "plain_ms", "bound_ms", "bound_by",
-                                             "library_ms") + bf16_keys if key in times[name]}}
+                                             "library_ms", "library_device_ms", "fma_bound_ms")
+           + bf16_keys if key in times[name]}}
         for name, (source, replaces) in KERNELS.items()]}))
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

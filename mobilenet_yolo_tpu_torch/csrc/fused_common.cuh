@@ -1,6 +1,7 @@
-// Shared pieces of the fused MobileNetV2 block kernels (fused_block.cu,
-// fused_stem.cu), which run a BatchNorm-folded block with its hidden tensor
-// kept on the SM.
+// The fused stem kernel's pieces (fused_stem.cu), which run the BatchNorm-
+// folded stem and block 0 with the hidden tensor kept on the SM; the block
+// kernels (fused_block.cu, fused_block_bf16.cu) take relu6 and
+// dynamic_smem from here.
 //
 // One thread block computes one output tile of at most kTilePix pixels
 // (th x tw) of one image. It walks the hidden channels in chunks of

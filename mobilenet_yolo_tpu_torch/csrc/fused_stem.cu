@@ -22,7 +22,7 @@
 // one block per (image, output tile of <= 64 pixels); the tile's input
 // window ((2*th+5) x (2*tw+5) x 3) is staged once; each thread computes
 // 4 hidden pixels x 4 channels of the stem over the 27 taps, and the
-// depthwise and project run as in fused_block.cu.
+// depthwise and project are fused_common.cuh's.
 
 #include "fused_common.cuh"
 

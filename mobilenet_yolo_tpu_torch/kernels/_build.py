@@ -114,12 +114,11 @@ def load() -> ctypes.CDLL:
                                     i32, i32, ptr, ptr]
     lib.myt_aug_compose.restype = ctypes.c_int
     # x, w1, b1, wdw, bdw, w2, b2, out, batch, h, w, cin, ch, cout, stride,
-    # residual, th, tw, stream (float32)
-    lib.myt_fused_block.argtypes = [ptr] * 8 + [i32] * 10 + [ptr]
-    lib.myt_fused_block.restype = ctypes.c_int
-    # the same, then mw, nw, warps, vec (bf16 on the tensor cores)
-    lib.myt_fused_block_bf16.argtypes = [ptr] * 8 + [i32] * 14 + [ptr]
-    lib.myt_fused_block_bf16.restype = ctypes.c_int
+    # residual, th, tw, mw, nw, warps, vec, stream: float32 (3xTF32) and
+    # bf16 block kernels on the tensor cores
+    for name in ("myt_fused_block", "myt_fused_block_bf16"):
+        getattr(lib, name).argtypes = [ptr] * 8 + [i32] * 14 + [ptr]
+        getattr(lib, name).restype = ctypes.c_int
     # x, k_stem, b_stem, wdw, bdw, w2, b2, out, batch, h, w, ch, cout, th,
     # tw, bf16, stream
     lib.myt_fused_stem.argtypes = [ptr] * 8 + [i32] * 8 + [ptr]

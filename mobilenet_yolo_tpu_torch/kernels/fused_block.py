@@ -8,11 +8,11 @@ the port's ``channels_last`` NCHW tensor, so the model needs no copy),
 
 * ``fused_inverted_residual`` replaces ``pallas_fused.py:101`` (stride 1,
   optional residual) and ``fused_inverted_residual_s2`` replaces
-  ``pallas_fused.py:193`` (stride 2, H and W even): float32 tensors run the
-  kernel in ``csrc/fused_block.cu`` (float32 FMAs), bf16 tensors the one in
-  ``csrc/fused_block_bf16.cu`` (both 1x1 products on the tensor cores), each
-  with its own tile plan (``pick_tile`` kinds "s1"/"s2" and
-  "s1_bf16"/"s2_bf16");
+  ``pallas_fused.py:193`` (stride 2, H and W even). Both 1x1 products run
+  on the tensor cores: float32 tensors in ``csrc/fused_block.cu`` (TF32
+  with the error-compensated three-pass split, float32-accurate), bf16
+  tensors in ``csrc/fused_block_bf16.cu``; each with its launch plans
+  (``plan_f32``, ``plan_bf16``) from one cost model fitted on the card;
 * ``fused_stem_block0`` replaces ``pallas_fused.py:355`` (3x3/s2 stem with
   pad 1, then block 0's depthwise and project) with ``csrc/fused_stem.cu``.
 
@@ -21,9 +21,11 @@ twins, counterparts of ``xla_inverted_residual`` (``:243``) and
 ``xla_stem_block0`` (``:402``) as three ``F.conv2d`` calls in
 ``channels_last``. They serve CPU tensors and are the kernels' oracle on the
 card; never a fallback for a CUDA tensor. In float32 they agree with the
-kernels up to summation order. In bf16 they round the hidden tensor and
-each conv's output to bf16, as ``xla_inverted_residual`` rounds to
-``x.dtype``. The bf16 block kernel rounds where the Pallas kernel does:
+kernels up to summation order (the float32 block kernel's three TF32
+passes keep float32's accuracy: ``tf32_round`` and ``matmul_tf32x3`` model
+them in plain torch for the tests). In bf16 the twins round the hidden
+tensor and each conv's output to bf16, as ``xla_inverted_residual`` rounds
+to ``x.dtype``. The bf16 block kernel rounds where the Pallas kernel does:
 float32 hidden tensor and depthwise, the depthwise output rounded to bf16
 for the project, one rounding of the output (``BF16_REL_TOL``). The stem
 kernel keeps everything in float32 inside and rounds its output once.
@@ -35,27 +37,32 @@ float32.
 from __future__ import annotations
 
 import functools
-from typing import NamedTuple
+from typing import Callable, NamedTuple
 
 import torch
 import torch.nn.functional as F
 
 from mobilenet_yolo_tpu_torch.kernels import _build
 
-CHUNK = 32          # hidden channels per pass, csrc/fused_common.cuh:kChunk
+# The stem kernel (csrc/fused_stem.cu, csrc/fused_common.cuh)
+CHUNK = 32          # hidden channels per pass, fused_common.cuh:kChunk
 TILE_PIX = 64       # output pixels per thread block, kTilePix
 MAX_COUT = 320      # output channels one block holds, kMaxCout
 SMEM_LIMIT = 232448  # dynamic shared memory one block may use on Hopper
 _DTYPES = (torch.float32, torch.bfloat16)
 
-# The bf16 block kernel (csrc/fused_block_bf16.cu): hidden channels per
-# chunk (kKc; 48 = 3 x 16 divides every MobileNetV2 hidden width), output
-# pixels per block at most (kMaxTile), and the project's warp tilings it
-# instantiates (launch_config): (m16 tiles, n8 tiles) of float32
-# accumulators per warp, and warps per block.
+# The block kernels on the tensor cores (csrc/fused_block_bf16.cu,
+# csrc/fused_block.cu): hidden channels per chunk (kKc; 48 = 3 x 16 and
+# 24 = 3 x 8 divide every MobileNetV2 hidden width), output pixels per
+# block at most (kMaxTile), and the project's warp tilings both instantiate
+# (launch_config): (m16 tiles, n8 tiles) of float32 accumulators per warp,
+# and warps per block.
 BF16_CHUNK = 48
+F32_CHUNK = 24
 BF16_MAX_TILE = 256
+F32_MAX_TILE = 256
 BF16_CONFIGS = ((1, 3, 8), (2, 3, 8), (1, 4, 8), (2, 4, 8), (4, 3, 8), (3, 5, 8), (3, 5, 16))
+F32_CONFIGS = BF16_CONFIGS
 BF16_ACC_REGS = 60  # project accumulators per thread at most: 4 * m16 * n8 tiles
 
 # Kernel vs twin in bf16, relative to the largest output. The kernel rounds
@@ -70,6 +77,11 @@ BF16_ACC_REGS = 60  # project accumulators per thread at most: 4 * m16 * n8 tile
 # factor of 2-4 over that; the Pallas kernel in bf16 against the twin sits
 # at 0.3-0.5% (tests/test_torch_fused.py).
 BF16_REL_TOL = 3e-2
+# Kernel vs twin in float32, relative to the largest output: both are
+# float32-accurate (three TF32 passes reach float32's own error, PERF.md)
+# and sum in other orders; the project sums up to 960 terms at 6e-8 each,
+# 5.8e-5 at worst.
+F32_REL_TOL = 1e-4
 
 
 # ------------------------------------------------------------------ twins --
@@ -104,6 +116,8 @@ def stem_block0_reference(x: torch.Tensor, k_stem, b_stem, wdw, bdw, w2, b2) -> 
     return _dw_project(h, wdw, bdw, w2, b2, 1).permute(0, 2, 3, 1).contiguous()
 
 
+
+
 # ----------------------------------------------------------------- tiling --
 
 def _round4(v: int) -> int:
@@ -112,12 +126,6 @@ def _round4(v: int) -> int:
 
 def _chunk_floats(wpp: int, cout: int) -> int:
     return CHUNK * (wpp + TILE_PIX + _round4(cout) + 11)
-
-
-def _block_smem_bytes(stride: int, th: int, tw: int, cin: int, cout: int) -> int:
-    """csrc/fused_block.cu:block_smem_floats, in bytes."""
-    wpp = _round4((stride * (th - 1) + 3) * (stride * (tw - 1) + 3))
-    return 4 * (cin * wpp + cin * CHUNK + _chunk_floats(wpp, cout))
 
 
 def _stem_smem_bytes(th: int, tw: int, cout: int) -> int:
@@ -129,35 +137,33 @@ def _stem_smem_bytes(th: int, tw: int, cout: int) -> int:
 @functools.lru_cache(maxsize=1024)
 def pick_tile(kind: str, ho: int, wo: int, cin: int, cout: int, ch: int = 0,
               batch: int = 128) -> tuple[int, int]:
-    """The output tile (th, tw) for ``kind`` "s1", "s2" or "stem" (the
-    float32 kernels and the stem) or "s1_bf16", "s2_bf16" (the bf16 block
-    kernel: ``plan_bf16``'s tile, which also needs ``ch`` and ``batch``).
+    """The output tile (th, tw) for ``kind`` "stem" (the stem kernel), "s1"
+    or "s2" (the float32 block kernel: ``plan_f32``'s tile) or "s1_bf16",
+    "s2_bf16" (the bf16 block kernel: ``plan_bf16``'s tile); the block
+    kinds also need ``ch`` and ``batch``.
 
-    For the float32 kinds, th * tw <= TILE_PIX and the tile minimises the
-    modelled work per hidden channel (the expand over the window, recomputed
-    on the halo, plus the depthwise and project over all TILE_PIX slots)
-    within the shared memory a block has."""
-    if kind.endswith("_bf16"):
+    For the stem, th * tw <= TILE_PIX and the tile minimises the modelled
+    work per hidden channel (the stem over the window, recomputed on the
+    halo, plus the depthwise and project over all TILE_PIX slots) within
+    the shared memory a block has."""
+    if kind != "stem":
         if ch < 1:
             raise ValueError(f"pick_tile({kind!r}) needs the hidden width ch")
-        plan = plan_bf16(int(kind[1]), batch, ho, wo, cin, ch, cout)
+        planner = plan_bf16 if kind.endswith("_bf16") else plan_f32
+        plan = planner(int(kind[1]), batch, ho, wo, cin, ch, cout)
         return plan.th, plan.tw
-    stride = 2 if kind == "s2" else 1
-    depth = 27 if kind == "stem" else cin
     best = None
     for th in range(1, min(ho, TILE_PIX) + 1):
         for tw in range(1, min(wo, TILE_PIX // th) + 1):
-            smem = (_stem_smem_bytes(th, tw, cout) if kind == "stem"
-                    else _block_smem_bytes(stride, th, tw, cin, cout))
-            if smem > SMEM_LIMIT:
+            if _stem_smem_bytes(th, tw, cout) > SMEM_LIMIT:
                 continue
-            window = _round4((stride * (th - 1) + 3) * (stride * (tw - 1) + 3))
+            window = _round4((th + 2) * (tw + 2))
             tiles = -(-ho // th) * -(-wo // tw)
-            key = (tiles * (window * depth + TILE_PIX * (cout + 9)), -th * tw)
+            key = (tiles * (window * 27 + TILE_PIX * (cout + 9)), -th * tw)
             if best is None or key < best[0]:
                 best = (key, (th, tw))
     if best is None:
-        raise ValueError(f"no {kind} tile of {ho}x{wo}, Cin={cin}, Cout={cout} fits "
+        raise ValueError(f"no stem tile of {ho}x{wo}, Cout={cout} fits "
                          f"{SMEM_LIMIT} bytes of shared memory")
     return best[1]
 
@@ -167,9 +173,13 @@ def _up(v: int, m: int) -> int:
 
 
 def _odd_stride(n: int) -> int:
-    """csrc/fused_block_bf16.cu:odd_stride: a bf16 row of an odd number of
-    16-byte units holding at least n values."""
+    """csrc/fused_block_bf16.cu:odd_stride (bf16) and csrc/fused_block.cu:
+    w2_stride (float32): an odd multiple of 8 values holding at least n."""
     return (_up(n, 8) // 8 | 1) * 8
+
+
+def _window_rows(stride: int, th: int, tw: int) -> int:
+    return _up((stride * (th - 1) + 3) * (stride * (tw - 1) + 3), 16)
 
 
 def _bf16_stage_bytes(cin: int, cout: int) -> int:
@@ -181,23 +191,39 @@ def _bf16_smem_bytes(stride: int, th: int, tw: int, cin: int, cout: int) -> int:
     """csrc/fused_block_bf16.cu:bf16_smem_bytes: the bf16 input window, the
     float32 hidden chunk over it, the bf16 depthwise output of the tile and
     two stages of chunk weights."""
-    wpp = _up((stride * (th - 1) + 3) * (stride * (tw - 1) + 3), 16)
+    wpp = _window_rows(stride, th, tw)
     return (2 * wpp * _odd_stride(_up(cin, 16)) + 4 * wpp * (BF16_CHUNK + 8)
             + 2 * _up(th * tw, 16) * (BF16_CHUNK + 8) + 2 * _bf16_stage_bytes(cin, cout))
 
 
-def bf16_config(pixels: int, cout: int) -> tuple[int, int, int] | None:
+def _f32_stage_bytes(cin: int, cout: int) -> int:
+    """csrc/fused_block.cu:stage_floats, in bytes: w1 [Cin8][24], w2
+    [24][odd multiple of 8 >= Cout], the taps and both biases."""
+    kc = F32_CHUNK
+    return 4 * (_up(cin, 8) * kc + kc * _odd_stride(cout) + 9 * kc + 2 * kc)
+
+
+def _f32_smem_bytes(stride: int, th: int, tw: int, cin: int, cout: int) -> int:
+    """csrc/fused_block.cu:f32_smem_bytes: the float32 input window (rows
+    of Cin8 + 4), the hidden chunk over it (rows of 24), the depthwise
+    output of the tile (rows of 28) and two stages of chunk weights."""
+    wpp = _window_rows(stride, th, tw)
+    return (4 * (wpp * (_up(cin, 8) + 4) + wpp * F32_CHUNK + _up(th * tw, 16) * (F32_CHUNK + 4))
+            + 2 * _f32_stage_bytes(cin, cout))
+
+
+def warp_config(pixels: int, cout: int) -> tuple[int, int, int] | None:
     """The instantiated (mw, nw, warps) whose project warp grid covers
     ``pixels`` tile pixels (m16 tiles) and ``cout`` channels (n8 tiles) with
     the fewest accumulators per thread, then the fewest warps; None if none
-    does. csrc/fused_block_bf16.cu:launch checks the same cover."""
+    does. Both block kernels' ``launch`` check the same cover."""
     mt, nt = -(-pixels // 16), -(-cout // 8)
     fits = [(mw * nw, warps, (mw, nw, warps)) for mw, nw, warps in BF16_CONFIGS
             if -(-nt // nw) <= warps and warps // -(-nt // nw) * mw >= mt]
     return min(fits)[2] if fits else None
 
 
-class Bf16Plan(NamedTuple):
+class Plan(NamedTuple):
     th: int
     tw: int
     mw: int
@@ -206,91 +232,196 @@ class Bf16Plan(NamedTuple):
     smem: int
 
 
-# The bf16 kernel's cost model, in SM cycles of an H100, fitted to the
-# plan sweep of tools/probe_fused_tiles.py at every served block shape
-# (PERF.md, PR 5). A block pays a fixed _BLOCK (window load, output) and,
-# per hidden chunk, a fixed _CHUNK (three barriers, the cp.async wait),
+class _Route(NamedTuple):
+    """What the cost model needs of one tensor-core block kernel."""
+    chunk: int                   # hidden channels per chunk
+    kstep: int                   # the mma's K: 16 (bf16) or 8 (tf32)
+    smem: Callable               # (stride, th, tw, cin, cout) -> bytes
+    stage: Callable              # (cin, cout) -> bytes of one weight stage
+    expand_item: Callable        # (mw, nw, warps) -> (m16, n8) tiles of an expand item
+    expand_ops: Callable         # (em, en) -> instructions per expand k-step of an item
+    project_ops: Callable        # (mw, nw) -> instructions per project k-step of a warp
+    ksplit: bool                 # two warps share an expand item where warps >= 2 x items
+    # cycles: per block, per chunk; issue weights of the expand, depthwise
+    # and project instructions; latency of an expand k-step, a depthwise round
+    block: float
+    per_chunk: float
+    expand_issue: float
+    dw_issue: float
+    project_issue: float
+    expand_kstep: float
+    dw_round: float
+
+
+# The cost model, in SM cycles of an H100, fitted per kernel to the plan
+# sweep of tools/probe_fused_tiles.py at every served block shape (PERF.md;
+# `--fit` refits a route). A block pays a fixed cost (window load, output)
+# and, per hidden chunk, a fixed cost (three barriers, the cp.async wait),
 # the latency of its slowest warp (expand k-steps, depthwise rounds) and
 # the issue cycles of its instructions, phase by phase. Blocks resident on
-# one SM run side by side at the same speed (the kernel is bound by
+# one SM run side by side at the same speed (the kernels are bound by
 # latency, not by the SM's issue rate: the fit is best so), so a wave is
 # the resident blocks of all SMs. Every tile restages all of w1 and w2
-# through L2 (the float32 kernel's 4x11 tiles at 11x11 pulled 1.8 MB
-# each): that traffic over L2's rate bounds the launch from below.
-_BLOCK, _CHUNK = 8609, 6173
-_EXPAND_ISSUE, _DW_ISSUE, _PROJECT_ISSUE = 2.548, 4.021, 2.315
-_EXPAND_KSTEP, _DW_ROUND = 197, 236
+# through L2 (1.8 MB a tile at block 16's float32 widths): that traffic
+# over L2's rate bounds the launch from below.
+_BF16 = _Route(
+    chunk=BF16_CHUNK, kstep=16, smem=_bf16_smem_bytes, stage=_bf16_stage_bytes,
+    # 8 warps: 32x48 items for the large tilings, else 32x24; 16 warps 16x24
+    expand_item=lambda mw, nw, warps: (2, 6 if mw * nw > 8 else 3) if warps == 8 else (1, 3),
+    # ldmatrix A per m16, ldmatrix .trans B per two n8, one mma per pair
+    expand_ops=lambda em, en: em + en / 2 + em * en,
+    project_ops=lambda mw, nw: mw + nw + mw * nw, ksplit=False,
+    block=8609, per_chunk=6173, expand_issue=2.548, dw_issue=4.021, project_issue=2.315,
+    expand_kstep=197, dw_round=236)
+# float32: ldmatrix A per m16, two 32-bit loads of B per n8, the split of
+# each fragment register (two integer operations, a subtraction, two
+# more), per pair three mma and the four adds of their fresh accumulator
+_F32 = _Route(
+    chunk=F32_CHUNK, kstep=8, smem=_f32_smem_bytes, stage=_f32_stage_bytes,
+    expand_item=lambda mw, nw, warps: (2 if warps == 8 else 1, 3),
+    expand_ops=lambda em, en: em + 2 * en + 5 * (4 * em + 2 * en) + 7 * em * en,
+    project_ops=lambda mw, nw: mw + 2 * nw + 5 * (4 * mw + 2 * nw) + 7 * mw * nw, ksplit=True,
+    block=13576.797, per_chunk=8093.144, expand_issue=0.684, dw_issue=0.245, project_issue=1.541,
+    expand_kstep=412.187, dw_round=848.195)
+_ROUTES = {"bf16": _BF16, "f32": _F32}
 _L2_BYTES_PER_CYCLE = 2800   # ~5.5 TB/s at 1.98 GHz, the whole card
 _NUM_SMS = 132
 _SM_SMEM = 233472   # shared memory per SM; each block also reserves 1 KB
 
 
-def _bf16_blocks_per_sm(mw: int, nw: int, warps: int, smem: int) -> int:
+def blocks_per_sm(mw: int, nw: int, warps: int, smem: int) -> int:
     """Blocks resident on one SM: shared memory, and registers as the
-    kernel's __launch_bounds__ promise them (kMinBlocks: two for the small
+    kernels' __launch_bounds__ promise them (kMinBlocks: two for the small
     8-warp tilings, one otherwise)."""
     by_regs = 2 if warps == 8 and mw * nw <= 8 else 1
     return min(_SM_SMEM // (smem + 1024), by_regs)
 
 
-def _bf16_cost(stride, batch, ho, wo, cin, ch, cout, th, tw, mw, nw, warps, smem) -> float:
-    kc, ksteps = BF16_CHUNK, _up(cin, 16) // 16
-    per_sm = _bf16_blocks_per_sm(mw, nw, warps, smem)
+# the fitted constants of a route, in the order of _cost_terms' terms
+COST_CONSTANTS = ("block", "per_chunk", "expand_kstep", "dw_round", "expand_issue", "dw_issue",
+                  "project_issue")
+
+
+def _cost_terms(route: _Route, stride, batch, ho, wo, cin, ch, cout, th, tw, mw, nw, warps,
+                smem) -> tuple[list[float], float] | None:
+    """The cost model's terms, one per constant of COST_CONSTANTS (the
+    modelled cycles are their dot product with the constants), and the
+    L2 floor in cycles; None if the block does not fit an SM."""
+    kc, ksteps = route.chunk, _up(cin, route.kstep) // route.kstep
+    per_sm = blocks_per_sm(mw, nw, warps, smem)
     if per_sm < 1:
-        return float("inf")
+        return None
     # expand: items of 16 * em rows by 8 * en channels; per k-step the
-    # ldmatrix and mma instructions, per item the epilogue's
-    em, en = (2, 6 if mw * nw > 8 else 3) if warps == 8 else (1, 3)
-    m_tiles = _up((stride * (th - 1) + 3) * (stride * (tw - 1) + 3), 16) // 16
+    # loads, splits and mma instructions, per item the epilogue's
+    em, en = route.expand_item(mw, nw, warps)
+    m_tiles = _window_rows(stride, th, tw) // 16
     e_items = -(-m_tiles // em) * (kc // (8 * en))
-    expand = e_items * (ksteps * (em + en / 2 + em * en) + 2 * em * (6 * en + 4)) / 4
+    expand = e_items * (ksteps * route.expand_ops(em, en) + 2 * em * (6 * en + 4)) / 4
     # depthwise: items of r output rows x 4 channels, 32 to a warp
     r = 1 if warps > 8 else 4 if stride == 1 and mw * nw <= 6 else 2
     d_items = -(-th // r) * tw * (kc // 4)
     depthwise = -(-d_items // 32) * (((r - 1) * stride + 3) * 3 + 9 + 54 * r) / 4
-    # project: each busy warp, per k-step, mw + nw loads and mw * nw mma
+    # project: each busy warp, per k-step, its loads, splits and mma
     n_tiles, p_tiles = -(-cout // 8), _up(th * tw, 16) // 16
     warps_n = -(-n_tiles // nw)
     warps_m = min(warps // warps_n, -(-p_tiles // mw))
-    project = warps_m * warps_n * (kc // 16) * (mw + nw + mw * nw) / 4
-    latency = (_EXPAND_KSTEP * -(-e_items // warps) * ksteps
-               + _DW_ROUND * -(-d_items // (32 * warps)))
-    issue = _EXPAND_ISSUE * expand + _DW_ISSUE * depthwise + _PROJECT_ISSUE * project
+    project = warps_m * warps_n * (kc // route.kstep) * route.project_ops(mw, nw) / 4
     blocks, chunks = batch * -(-ho // th) * -(-wo // tw), -(-ch // kc)
     waves = -(-blocks // (_NUM_SMS * per_sm))
-    restaged = blocks * chunks * _bf16_stage_bytes(cin, cout)
-    return max(waves * (_BLOCK + chunks * (_CHUNK + latency + issue)),
-               restaged / _L2_BYTES_PER_CYCLE)
+    wc = waves * chunks
+    # the expand's chain of k-steps: its items' rounds over the warps, or
+    # half the k-steps where two warps share each item
+    split = route.ksplit and 2 * e_items <= warps and ksteps > 1
+    chain = -(-ksteps // 2) if split else -(-e_items // warps) * ksteps
+    terms = [waves, wc, wc * chain, wc * -(-d_items // (32 * warps)),
+             wc * expand, wc * depthwise, wc * project]
+    return terms, blocks * chunks * route.stage(cin, cout) / _L2_BYTES_PER_CYCLE
 
 
-def bf16_plans(stride: int, batch: int, ho: int, wo: int, cin: int, ch: int,
-               cout: int) -> list[tuple[float, Bf16Plan]]:
-    """Every bf16 launch plan for an output of ho x wo, with its modelled
-    cycles (``_bf16_cost``), best first: each tile of at most BF16_MAX_TILE
-    pixels whose shared memory fits a block and that an instantiated warp
-    tiling covers (so its accumulators fit BF16_ACC_REGS)."""
+def _cost(route: _Route, stride, batch, ho, wo, cin, ch, cout, th, tw, mw, nw, warps,
+          smem) -> float:
+    found = _cost_terms(route, stride, batch, ho, wo, cin, ch, cout, th, tw, mw, nw, warps, smem)
+    if found is None:
+        return float("inf")
+    terms, l2_floor = found
+    return max(sum(getattr(route, c) * t for c, t in zip(COST_CONSTANTS, terms)), l2_floor)
+
+
+def block_plans(dtype: str, stride: int, batch: int, ho: int, wo: int, cin: int, ch: int,
+                cout: int) -> list[tuple[float, Plan]]:
+    """Every launch plan of the ``dtype`` ("f32" or "bf16") block kernel for
+    an output of ho x wo, with its modelled cycles (``_cost``), best first:
+    each tile of at most 256 pixels whose shared memory fits a block and
+    that an instantiated warp tiling covers (so its accumulators fit
+    BF16_ACC_REGS)."""
+    route = _ROUTES[dtype]
     plans = []
     for th in range(1, min(ho, BF16_MAX_TILE) + 1):
         for tw in range(1, min(wo, BF16_MAX_TILE // th) + 1):
-            cfg = bf16_config(th * tw, cout)
-            smem = _bf16_smem_bytes(stride, th, tw, cin, cout)
+            cfg = warp_config(th * tw, cout)
+            smem = route.smem(stride, th, tw, cin, cout)
             if cfg is None or smem > SMEM_LIMIT:
                 continue
-            cost = _bf16_cost(stride, batch, ho, wo, cin, ch, cout, th, tw, *cfg, smem)
-            plans.append(((cost, -th * tw, th), Bf16Plan(th, tw, *cfg, smem)))
+            cost = _cost(route, stride, batch, ho, wo, cin, ch, cout, th, tw, *cfg, smem)
+            plans.append(((cost, -th * tw, th), Plan(th, tw, *cfg, smem)))
     plans.sort()
     return [(key[0], plan) for key, plan in plans]
 
 
-@functools.lru_cache(maxsize=1024)
-def plan_bf16(stride: int, batch: int, ho: int, wo: int, cin: int, ch: int,
-              cout: int) -> Bf16Plan:
-    """The bf16 kernel's launch plan with the least modelled time."""
-    plans = bf16_plans(stride, batch, ho, wo, cin, ch, cout)
+def _best_plan(dtype: str, stride: int, batch: int, ho: int, wo: int, cin: int, ch: int,
+               cout: int) -> Plan:
+    plans = block_plans(dtype, stride, batch, ho, wo, cin, ch, cout)
     if not plans:
-        raise ValueError(f"no bf16 s{stride} tile of {ho}x{wo}, Cin={cin}, Cout={cout} fits "
+        raise ValueError(f"no {dtype} s{stride} tile of {ho}x{wo}, Cin={cin}, Cout={cout} fits "
                          f"{SMEM_LIMIT} bytes of shared memory")
     return plans[0][1]
+
+
+@functools.lru_cache(maxsize=1024)
+def plan_bf16(stride: int, batch: int, ho: int, wo: int, cin: int, ch: int,
+              cout: int) -> Plan:
+    """The bf16 kernel's launch plan with the least modelled time."""
+    return _best_plan("bf16", stride, batch, ho, wo, cin, ch, cout)
+
+
+@functools.lru_cache(maxsize=1024)
+def plan_f32(stride: int, batch: int, ho: int, wo: int, cin: int, ch: int,
+             cout: int) -> Plan:
+    """The float32 kernel's launch plan with the least modelled time."""
+    return _best_plan("f32", stride, batch, ho, wo, cin, ch, cout)
+
+
+# -------------------------------------------------- the 3xTF32 split, modelled
+
+def tf32_round(t: torch.Tensor) -> torch.Tensor:
+    """``cvt.rna.tf32.f32`` in plain torch: float32 rounded to 10 mantissa
+    bits, to nearest with ties away from zero (adding half a unit of the
+    13 dropped bits to the bit pattern rounds the magnitude; the sign bit
+    is left alone). Finite inputs only."""
+    bits = t.to(torch.float32).contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def matmul_tf32x3(a: torch.Tensor, b: torch.Tensor, passes: int = 3) -> torch.Tensor:
+    """``a @ b`` (float32, (M, K) @ (K, N)) as ``csrc/fused_block.cu`` sums
+    it on the tensor cores: each operand split into hi = tf32(v) and lo =
+    tf32(v - hi); per k-step of 8 the products a_lo b_hi, a_hi b_lo, a_hi
+    b_hi summed from zero, then added to the float32 accumulator.
+    ``passes=1`` keeps a_hi b_hi alone: one TF32 pass. Tests use it; no
+    kernel path does."""
+    if passes not in (1, 3):
+        raise ValueError(f"passes is 1 or 3, got {passes}")
+    a, b = a.to(torch.float32), b.to(torch.float32)
+    a_hi, b_hi = tf32_round(a), tf32_round(b)
+    a_lo, b_lo = tf32_round(a - a_hi), tf32_round(b - b_hi)
+    pairs = ((a_lo, b_hi), (a_hi, b_lo), (a_hi, b_hi))[3 - passes:]
+    acc = torch.zeros((a.shape[0], b.shape[1]), dtype=torch.float32)
+    for k in range(0, a.shape[1], 8):
+        step = torch.zeros_like(acc)
+        for x, y in pairs:
+            step = step + x[:, k:k + 8] @ y[k:k + 8]
+        acc = acc + step
+    return acc
 
 
 # ------------------------------------------------------------------ checks --
@@ -336,9 +467,10 @@ def _f32(t: torch.Tensor) -> torch.Tensor:
 
 
 def _launch_block(x, w1, b1, wdw, bdw, w2, b2, residual: bool, stride: int,
-                  plan: Bf16Plan | None = None) -> torch.Tensor:
-    """float32 -> csrc/fused_block.cu, bf16 -> csrc/fused_block_bf16.cu
-    (with ``plan``, or ``plan_bf16``'s); neither falls back to the other."""
+                  plan: Plan | None = None) -> torch.Tensor:
+    """float32 -> csrc/fused_block.cu, bf16 -> csrc/fused_block_bf16.cu,
+    each with ``plan`` or its dtype's best plan (``plan_f32``,
+    ``plan_bf16``); neither falls back to the other."""
     b, h, w, cin = x.shape
     ch, cout = w1.shape[1], w2.shape[1]
     ho, wo = h // stride, w // stride
@@ -346,20 +478,17 @@ def _launch_block(x, w1, b1, wdw, bdw, w2, b2, residual: bool, stride: int,
     b1, bdw, b2 = _f32(b1), _f32(bdw), _f32(b2)
     ptrs = [t.data_ptr() for t in (x, w1, b1, wdw, bdw, w2, b2, out)]
     dims = [b, h, w, cin, ch, cout, stride, int(residual)]
+    bf16 = x.dtype == torch.bfloat16
+    plan = plan or (plan_bf16 if bf16 else plan_f32)(stride, b, ho, wo, cin, ch, cout)
+    # 16-byte copies need rows of whole 16-byte units and aligned bases
+    per_copy = 8 if bf16 else 4
+    vec = all(v % per_copy == 0 for v in (cin, ch, cout)) and all(p % 16 == 0 for p in ptrs)
+    name = "myt_fused_block_bf16" if bf16 else "myt_fused_block"
     lib = _build.load()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        if x.dtype == torch.bfloat16:
-            plan = plan or plan_bf16(stride, b, ho, wo, cin, ch, cout)
-            # 16-byte copies need rows of whole 16-byte units and aligned bases
-            vec = all(v % 8 == 0 for v in (cin, ch, cout)) and all(p % 16 == 0 for p in ptrs)
-            name = "fused_block_bf16"
-            err = lib.myt_fused_block_bf16(*ptrs, *dims, plan.th, plan.tw, plan.mw, plan.nw,
-                                           plan.warps, int(vec), stream)
-        else:
-            name = "fused_block"
-            err = lib.myt_fused_block(*ptrs, *dims, *pick_tile(f"s{stride}", ho, wo, cin, cout),
-                                      stream)
+        err = getattr(lib, name)(*ptrs, *dims, plan.th, plan.tw, plan.mw, plan.nw, plan.warps,
+                                 int(vec), stream)
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
     return out
@@ -375,6 +504,10 @@ def fused_inverted_residual(x: torch.Tensor, w1, b1, wdw, bdw, w2, b2,
     float32, ``csrc/fused_block_bf16.cu`` for bf16) on the current stream,
     without synchronising, and adds one to ``fused_inverted_residual.launches``;
     a CPU tensor runs ``inverted_residual_reference``. Any other input raises.
+
+    The float32 kernel runs both 1x1 products on the TF32 tensor cores in
+    three passes (``matmul_tf32x3``) and is float32-accurate whatever
+    ``torch.backends.cuda.matmul.allow_tf32`` says: it never reads the flag.
     """
     _check_block("fused_inverted_residual", x, w1, b1, wdw, bdw, w2, b2, even=False)
     if residual and w2.shape[1] != x.shape[3]:

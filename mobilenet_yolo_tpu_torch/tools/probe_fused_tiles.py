@@ -1,21 +1,29 @@
-"""The bf16 fused-block kernel under its candidate launch plans, on the card.
+"""A fused-block kernel under its candidate launch plans, on the card.
 
 For each distinct block shape of the folded VOC backbone that runs the
 stride-1 or stride-2 block kernel (batch 128, 352x352 by default), times
-the bf16 kernel (``csrc/fused_block_bf16.cu``) under the plan that
-``kernels/fused_block.py:plan_bf16`` picks and under the next best plans
-of its cost model with another tile, warp tiling or occupancy (``--top``
-of each occupancy), beside the cuDNN twin, and checks each against the twin
-within ``BF16_REL_TOL``. Times are CUDA events around the calls (``ms``)
+the ``--dtype`` block kernel (bf16: ``csrc/fused_block_bf16.cu``, float32:
+``csrc/fused_block.cu``) under the plan that ``kernels/fused_block.py``
+picks (``plan_bf16``, ``plan_f32``) and under the next best plans of its
+cost model with another tile, warp tiling or occupancy (``--top`` of each
+occupancy), beside the cuDNN twin (TF32 off), and checks each against the
+twin within ``BF16_REL_TOL`` or ``F32_REL_TOL``. Times are CUDA events around the calls (``ms``)
 and the kernels' own device time from ``torch.profiler`` (``kernel_ms``).
 Each plan's modelled cycles stand beside its time: the measurements that
 the model's constants are held to.
 
-    python -m mobilenet_yolo_tpu_torch.tools.probe_fused_tiles [--batch 128] \\
-        [--size 352] [--top 3] [--iters 10] [--device cuda|cpu] [--json]
+    python -m mobilenet_yolo_tpu_torch.tools.probe_fused_tiles [--dtype bf16|f32] \\
+        [--batch 128] [--size 352] [--top 3] [--iters 10] [--device cuda|cpu] [--json]
 
 On ``--device cpu`` the wrapper runs its twin (CPU tensors never reach a
 kernel), so a CPU run checks the tool's plumbing, not the kernel.
+
+``--fit SWEEP.json ...`` (no device) fits the dtype's cost-model constants
+(``fused_block.COST_CONSTANTS``) to sweeps saved with ``--json``: least
+squares of the measured cycles on the model's terms, each relative to its
+measurement, the constants kept non-negative; it prints them with the
+fit's mean relative error and how often the fitted model picks the
+measured best plan of a shape.
 """
 
 from __future__ import annotations
@@ -23,6 +31,7 @@ from __future__ import annotations
 import argparse
 import json
 
+import numpy as np
 import torch
 
 from mobilenet_yolo_tpu_torch.config import VOC_CONFIG
@@ -66,14 +75,14 @@ def block_args(gen: torch.Generator, x_shape: tuple, ch: int, cout: int, dtype,
     return [a.to(dtype) if a.dim() > 1 else a for a in args]
 
 
-def candidates(stride: int, batch: int, ho: int, wo: int, cin: int, ch: int, cout: int,
-               top: int) -> list[tuple[float, fb.Bf16Plan]]:
+def candidates(dtype: str, stride: int, batch: int, ho: int, wo: int, cin: int, ch: int,
+               cout: int, top: int) -> list[tuple[float, fb.Plan]]:
     """The model's best plan first, then, for one and for two blocks per SM,
     the next best of each other (tiles per image, warp tiling): up to
     ``top`` plans of each occupancy."""
     seen, out, per_occupancy = set(), [], {}
-    for cost, plan in fb.bf16_plans(stride, batch, ho, wo, cin, ch, cout):
-        per_sm = fb._bf16_blocks_per_sm(plan.mw, plan.nw, plan.warps, plan.smem)
+    for cost, plan in fb.block_plans(dtype, stride, batch, ho, wo, cin, ch, cout):
+        per_sm = fb.blocks_per_sm(plan.mw, plan.nw, plan.warps, plan.smem)
         key = (per_sm, -(-ho // plan.th) * -(-wo // plan.tw), plan.mw, plan.nw, plan.warps)
         if key not in seen and per_occupancy.get(per_sm, 0) < top:
             seen.add(key)
@@ -97,9 +106,13 @@ def kernel_ms(fn, iters: int) -> float | None:
     return total / iters / 1e3 if total > 0 else None
 
 
+DTYPES = {"bf16": (torch.bfloat16, fb.BF16_REL_TOL), "f32": (torch.float32, fb.F32_REL_TOL)}
+
+
 def run(batch: int = 128, size: int = 352, top: int = 3, iters: int = 10,
-        device="cuda") -> dict:
+        device="cuda", dtype: str = "bf16") -> dict:
     device = tool_device(device)
+    torch_dtype, tol = DTYPES[dtype]
     if device.type == "cuda":
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -109,21 +122,21 @@ def run(batch: int = 128, size: int = 352, top: int = 3, iters: int = 10,
     shapes = []
     for blocks, kernel, x_shape, ch, cout, residual in block_shapes(backbone, batch, size)[1:]:
         stride = 2 if kernel.endswith("_s2") else 1
-        args = block_args(gen, x_shape, ch, cout, torch.bfloat16, device)
+        args = block_args(gen, x_shape, ch, cout, torch_dtype, device)
         twin = lambda: fb.inverted_residual_reference(*args, residual=residual, stride=stride)
         want = twin()
         scale = float(want.float().abs().max())
         ho, wo = x_shape[1] // stride, x_shape[2] // stride
         plans = []
-        for cost, plan in candidates(stride, batch, ho, wo, x_shape[3], ch, cout, top):
+        for cost, plan in candidates(dtype, stride, batch, ho, wo, x_shape[3], ch, cout, top):
             if device.type == "cuda":
                 run_plan = lambda: fb._launch_block(*args, residual, stride, plan=plan)
             else:
                 run_plan = twin
             got = run_plan()
             err = float((got.float() - want.float()).abs().max()) / scale
-            if not err <= fb.BF16_REL_TOL:
-                raise RuntimeError(f"{blocks} plan {plan}: rel err {err} > {fb.BF16_REL_TOL}")
+            if not err <= tol:
+                raise RuntimeError(f"{blocks} {dtype} plan {plan}: rel err {err} > {tol}")
             plans.append({"plan": plan._asdict(), "tiles": -(-ho // plan.th) * -(-wo // plan.tw),
                           "model_cycles": cost, "rel_err": err,
                           "ms": device_ms(run_plan, device=device, iters=iters),
@@ -134,23 +147,74 @@ def run(batch: int = 128, size: int = 352, top: int = 3, iters: int = 10,
                        "twin_kernel_ms": kernel_ms(twin, iters) if device.type == "cuda" else None,
                        "plans": plans})
         del args, want
-    return {"device": device_name(device), "batch": batch, "size": size, "shapes": shapes}
+    return {"device": device_name(device), "dtype": dtype, "batch": batch, "size": size,
+            "shapes": shapes}
+
+
+SM_CLOCK_HZ = 1.98e9  # the H100 SXM boost clock: the cost model's cycle
+
+
+def fit(sweeps: list[dict]) -> dict:
+    """The constants of one dtype's cost model fitted to ``sweeps`` (each
+    a ``run`` result; sweeps saved before ``--dtype`` existed are bf16):
+    the kernel's profiler time where there is one, else its event time."""
+    from scipy.optimize import nnls
+
+    dtypes = {sweep.get("dtype", "bf16") for sweep in sweeps}
+    if len(dtypes) != 1:
+        raise ValueError(f"fit one dtype at a time, got {sorted(dtypes)}")
+    route = fb._ROUTES[dtypes.pop()]
+    readings = []  # (shape key, plan terms, L2 floor, measured cycles)
+    for sweep in sweeps:
+        for shape in sweep["shapes"]:
+            stride, x = shape["stride"], shape["x"]
+            dims = (stride, sweep["batch"], x[1] // stride, x[2] // stride, x[3], shape["hidden"],
+                    shape["cout"])
+            for p in shape["plans"]:
+                q = p["plan"]
+                terms, floor = fb._cost_terms(route, *dims, q["th"], q["tw"], q["mw"], q["nw"],
+                                              q["warps"], q["smem"])
+                cycles = (p["kernel_ms"] or p["ms"]) * 1e-3 * SM_CLOCK_HZ
+                readings.append(((id(sweep), shape["blocks"]), terms, floor, cycles))
+    coef, _ = nnls(np.array([[t / y for t in terms] for _, terms, _, y in readings]),
+                   np.ones(len(readings)))
+    model = [max(float(np.dot(coef, terms)), floor) for _, terms, floor, _ in readings]
+    errors = [abs(m - y) / y for m, (_, _, _, y) in zip(model, readings)]
+    by_shape = {}
+    for m, (key, _, _, y) in zip(model, readings):
+        by_shape.setdefault(key, []).append((m, y))
+    picks = sum(min(v)[1] == min(y for _, y in v) for v in by_shape.values())
+    return {"constants": dict(zip(fb.COST_CONSTANTS, (round(float(c), 3) for c in coef))),
+            "readings": len(readings), "mean_rel_err": float(np.mean(errors)),
+            "max_rel_err": float(np.max(errors)),
+            "picks_measured_best": f"{picks} of {len(by_shape)}"}
 
 
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--dtype", choices=sorted(DTYPES), default="bf16")
     ap.add_argument("--batch", type=int, default=128)
     ap.add_argument("--size", type=int, default=352)
     ap.add_argument("--top", type=int, default=3)
     ap.add_argument("--iters", type=int, default=10)
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--json", action="store_true", help="print one JSON object")
+    ap.add_argument("--fit", nargs="+", metavar="SWEEP_JSON",
+                    help="fit the cost model to saved sweeps instead (no device)")
     args = ap.parse_args(argv)
-    result = run(args.batch, args.size, args.top, args.iters, args.device)
+    if args.fit:
+        sweeps = []
+        for path in args.fit:
+            with open(path) as f:
+                sweeps.append(json.load(f))
+        result = fit(sweeps)
+        print(json.dumps(result))
+        return result
+    result = run(args.batch, args.size, args.top, args.iters, args.device, args.dtype)
     if args.json:
         print(json.dumps(result))
     else:
-        print(f"{result['device']}: bf16 block kernel plans, b{result['batch']} "
+        print(f"{result['device']}: {result['dtype']} block kernel plans, b{result['batch']} "
               f"{result['size']}x{result['size']}")
         for s in result["shapes"]:
             print(f"{s['blocks']} s{s['stride']} x{tuple(s['x'])} ch{s['hidden']} "

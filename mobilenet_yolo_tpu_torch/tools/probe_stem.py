@@ -11,9 +11,8 @@ Times four cuDNN formulations of the 3x3/s2 RGB stem (32 channels) at batch
      128) fold (``fold_s2d4``), then depth-to-space back to (176, 176, 32).
 
 plus each one's largest difference from a), and a), b) and d) again on a
-bf16-resident input. The fold of d) is wrong in the JAX tool too (its
-docstring puts the difference at ~5.3): it is ported as it is, and its
-difference is printed, not checked.
+bf16-resident input. Every fold gives a)'s output up to the order of its
+sums.
 
     python -m mobilenet_yolo_tpu_torch.tools.probe_stem [--batch 128] [--size 352] \\
         [--iters 32] [--device cuda|cpu]
@@ -60,8 +59,13 @@ def fold_s2d(k: np.ndarray) -> np.ndarray:
 
 
 def fold_s2d4(k: np.ndarray) -> np.ndarray:
-    """(3, 3, 3, C) -> (2, 2, 48, 4C) (``probe_stem.py:114-127``), as the JAX
-    tool folds it, defect included."""
+    """(3, 3, 3, C) -> (2, 2, 48, 4C): output block tap (bi, bj), channel
+    (dy, dx, c), output phase (u, v) reads the original tap (4*bi + dy -
+    (2*u + 3), 4*bj + dx - (2*v + 3)). The conv pads the cell grid by one
+    above and to the left, so tap bi = 0 reads cell i - 1: output pixel
+    2*i + u reads input row 4*i + 2*u - 1 + ky, which is row dy of cell
+    i - 1 + bi. (The JAX tool's ``probe_stem.py:114-127`` offsets by
+    2*u + 1 and misses that pad.)"""
     c = k.shape[-1]
     kq = np.zeros((2, 2, 48, 4 * c), np.float32)
     for u in range(2):
@@ -70,8 +74,8 @@ def fold_s2d4(k: np.ndarray) -> np.ndarray:
                 for bj in range(2):
                     for dy in range(4):
                         for dx in range(4):
-                            ky = 4 * bi + dy - (2 * u + 1)
-                            kx = 4 * bj + dx - (2 * v + 1)
+                            ky = 4 * bi + dy - (2 * u + 3)
+                            kx = 4 * bj + dx - (2 * v + 3)
                             if 0 <= ky < 3 and 0 <= kx < 3:
                                 ci = dy * 12 + dx * 3
                                 kq[bi, bj, ci:ci + 3, (u * 2 + v) * c:(u * 2 + v + 1) * c] = \
@@ -141,8 +145,7 @@ def main(argv=None) -> dict:
               "c_max_abs_diff": float((a - stem_c(xd, k4d).float()).abs().max()),
               "d_max_abs_diff": float((a - stem_d(xqd, kqd).float()).abs().max())}
     print(f"b exact: {result['b_max_abs_diff']}  c exact: {result['c_max_abs_diff']}  "
-          f"d exact: {result['d_max_abs_diff']} (the d fold is defective, as in JAX)",
-          flush=True)
+          f"d exact: {result['d_max_abs_diff']}", flush=True)
 
     cases = {"a_ms": (stem_a, xd, kd), "b_ms": (stem_b, xsd, k4d), "c_ms": (stem_c, xd, k4d),
              "d_ms": (stem_d, xqd, kqd),

@@ -22,10 +22,11 @@ from typing import Callable
 import torch
 
 # NVIDIA H100 SXM data sheet: HBM bytes/s, float32 FLOP/s outside the
-# tensor cores (TF32 off), dense bf16 tensor-core FLOP/s
+# tensor cores (TF32 off), dense bf16 and TF32 tensor-core FLOP/s
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
 BF16_FLOPS = 989e12
+TF32_FLOPS = 494.7e12
 
 
 @contextlib.contextmanager

@@ -280,8 +280,9 @@ def test_geometry_step_runs_each_mode(cuda, fused_aug):
 # --------------------------------------- the fused blocks of the folded model
 
 # kernel vs twin, relative to the largest output. float32: only the order
-# of summation differs (the kernel sums the project over 32-channel
-# chunks; up to 960 terms at 6e-8 each is 5.8e-5 at worst). bf16
+# of summation differs (the block kernel's three TF32 passes keep float32's
+# accuracy and sum the project over 24-channel chunks; up to 960 terms at
+# 6e-8 each is 5.8e-5 at worst). bf16
 # (``fb.BF16_REL_TOL``): the block kernel rounds where pallas_fused.py does
 # (float32 hidden and depthwise, the depthwise output rounded to bf16 for
 # the project, one output rounding); the twin also rounds the hidden
@@ -344,6 +345,46 @@ def test_bf16_kernel_takes_a_misaligned_base(cuda):
     assert args[0].is_contiguous() and args[0].data_ptr() % 16 == 2
     got = fb.fused_inverted_residual(*args)
     _assert_fused_close(got, fb.inverted_residual_reference(*args), torch.bfloat16)
+
+
+def test_f32_kernel_takes_a_misaligned_base(cuda):
+    """A contiguous float32 x whose storage starts 4 bytes off a 16-byte
+    boundary takes the element loads instead of the 16-byte copies."""
+    args = _fused_args(7, 2, 16, 16, 32, 96, 32, torch.float32, cuda)
+    flat = torch.empty(args[0].numel() + 1, dtype=torch.float32, device=cuda)
+    args[0] = flat[1:].view(args[0].shape).copy_(args[0])
+    assert args[0].is_contiguous() and args[0].data_ptr() % 16 == 4
+    got = fb.fused_inverted_residual(*args)
+    _assert_fused_close(got, fb.inverted_residual_reference(*args), torch.float32)
+
+
+@pytest.mark.parametrize("allow_tf32", [False, True])
+@pytest.mark.parametrize("shape,stride,residual", [
+    ((2, 11, 11, 160, 960, 320), 1, False),  # block 16
+    ((2, 22, 22, 96, 576, 160), 2, False),   # block 13, stride 2
+    ((2, 11, 11, 24, 144, 24), 1, True),     # block 2's widths
+    ((2, 22, 22, 16, 96, 24), 2, False),     # block 1's widths, stride 2
+])
+def test_f32_kernel_is_float32_accurate(cuda, shape, stride, residual, allow_tf32, monkeypatch):
+    """The float32 kernel's three TF32 passes against the float64 twin: within
+    1e-5 of the largest output (one TF32 pass sits at 2-4e-4 on the CPU
+    model, tests/test_torch_fused.py), whatever PyTorch's TF32 flags say;
+    the float32 twin's own error (TF32 off) is reported beside it."""
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", allow_tf32)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", allow_tf32)
+    args = _fused_args(sum(shape), *shape, torch.float32, cuda)
+    wrapper = fb.fused_inverted_residual if stride == 1 else fb.fused_inverted_residual_s2
+    got = wrapper(*args, residual=residual) if stride == 1 else wrapper(*args)
+    want = fb.inverted_residual_reference(*[a.double() for a in args], residual=residual,
+                                          stride=stride)
+    scale = float(want.abs().max())
+    err = float((got.double() - want).abs().max()) / scale
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    twin = fb.inverted_residual_reference(*args, residual=residual, stride=stride)
+    twin_err = float((twin.double() - want).abs().max()) / scale
+    print(f"kernel vs float64 {err:.3g}, float32 twin vs float64 {twin_err:.3g}")
+    assert err <= 1e-5, (err, twin_err)
 
 
 @pytest.mark.parametrize("stride", [1, 2])

@@ -149,22 +149,20 @@ def test_wrappers_raise(case, error, match):
 
 
 def test_pick_tile_fits_every_block_of_the_served_model():
-    """At 352x352 every block of the VOC backbone gets a tile of at most 64
-    pixels whose shared memory fits a Hopper block; the stride-1 and
-    stride-2 8x8 tiles of the wide maps, 4x11 at the 11x11 ones."""
-    shapes = [("stem", 176, 176, 3, 16), ("s2", 88, 88, 16, 24), ("s1", 88, 88, 24, 24),
-              ("s2", 44, 44, 24, 32), ("s1", 44, 44, 32, 32), ("s2", 22, 22, 32, 64),
-              ("s1", 22, 22, 64, 64), ("s1", 22, 22, 64, 96), ("s1", 22, 22, 96, 96),
-              ("s2", 11, 11, 96, 160), ("s1", 11, 11, 160, 160), ("s1", 11, 11, 160, 320)]
-    for kind, ho, wo, cin, cout in shapes:
-        th, tw = fb.pick_tile(kind, ho, wo, cin, cout)
-        assert 1 <= th * tw <= fb.TILE_PIX and th <= ho and tw <= wo
-        smem = (fb._stem_smem_bytes(th, tw, cout) if kind == "stem"
-                else fb._block_smem_bytes(int(kind[1]), th, tw, cin, cout))
-        assert smem <= fb.SMEM_LIMIT
-    assert fb.pick_tile("s1", 88, 88, 24, 24) == (8, 8)
-    assert fb.pick_tile("s2", 88, 88, 16, 24) == (8, 8)
-    assert fb.pick_tile("s1", 11, 11, 160, 320) == (4, 11)
+    """At 352x352 the stem kernel gets a tile of at most 64 pixels whose
+    shared memory fits a Hopper block (8x8 at 176x176); the block kinds
+    give their kernels' plans' tiles (float32 ``plan_f32``, bf16
+    ``plan_bf16``)."""
+    th, tw = fb.pick_tile("stem", 176, 176, 3, 16)
+    assert 1 <= th * tw <= fb.TILE_PIX and th <= 176 and tw <= 176
+    assert fb._stem_smem_bytes(th, tw, 16) <= fb.SMEM_LIMIT
+    assert (th, tw) == (8, 8)
+    for stride, ho, cin, ch, cout in SERVED_BLOCKS:
+        for kind, planner in ((f"s{stride}", fb.plan_f32), (f"s{stride}_bf16", fb.plan_bf16)):
+            plan = planner(stride, 128, ho, ho, cin, ch, cout)
+            assert fb.pick_tile(kind, ho, ho, cin, cout, ch, 128) == (plan.th, plan.tw)
+    with pytest.raises(ValueError, match="needs the hidden width"):
+        fb.pick_tile("s1", 11, 11, 160, 320)
 
 
 # the stride-1 and stride-2 blocks of the VOC backbone at 352x352, batch
@@ -173,6 +171,28 @@ SERVED_BLOCKS = [(2, 88, 16, 96, 24), (1, 88, 24, 144, 24), (2, 44, 24, 144, 32)
                  (1, 44, 32, 192, 32), (2, 22, 32, 192, 64), (1, 22, 64, 384, 64),
                  (1, 22, 64, 384, 96), (1, 22, 96, 576, 96), (2, 11, 96, 576, 160),
                  (1, 11, 160, 960, 160), (1, 11, 160, 960, 320)]
+
+
+@pytest.mark.parametrize("stride,ho,cin,ch,cout", SERVED_BLOCKS)
+def test_f32_plan_fits_every_block_of_the_served_model(stride, ho, cin, ch, cout):
+    """The float32 kernel's plan: a tile of at most 256 pixels whose shared
+    memory fits a Hopper block, a project warp grid that covers the tile's
+    m16 rows and Cout's n8 columns within the accumulator budget, K in
+    whole k8 steps and the hidden width in whole 24-channel chunks; an
+    11x11 output (blocks 13-16) in one or two tiles."""
+    plan = fb.plan_f32(stride, 128, ho, ho, cin, ch, cout)
+    assert (plan.th, plan.tw) == fb.pick_tile(f"s{stride}", ho, ho, cin, cout, ch, 128)
+    assert 1 <= plan.th * plan.tw <= fb.F32_MAX_TILE and plan.th <= ho and plan.tw <= ho
+    assert plan.smem == fb._f32_smem_bytes(stride, plan.th, plan.tw, cin, cout) <= fb.SMEM_LIMIT
+    assert (plan.mw, plan.nw, plan.warps) in fb.F32_CONFIGS
+    assert 4 * plan.mw * plan.nw <= fb.BF16_ACC_REGS
+    m_tiles, n_tiles = -(-plan.th * plan.tw // 16), -(-cout // 8)
+    warps_n = -(-n_tiles // plan.nw)
+    assert warps_n <= plan.warps and plan.warps // warps_n * plan.mw >= m_tiles
+    assert fb.F32_CHUNK % 8 == 0 and ch % fb.F32_CHUNK == 0
+    tiles = -(-ho // plan.th) * -(-ho // plan.tw)
+    if ho == 11:
+        assert tiles <= 2
 
 
 @pytest.mark.parametrize("stride,ho,cin,ch,cout", SERVED_BLOCKS)
@@ -197,12 +217,70 @@ def test_bf16_plan_fits_every_block_of_the_served_model(stride, ho, cin, ch, cou
         assert tiles <= 2
 
 
+def test_tf32_round_is_cvt_rna():
+    """Round to nearest at tf32's 10 mantissa bits with ties away from zero
+    (1 + 2^-11 goes up, where ties-to-even would keep 1), carries into the
+    exponent, keeps the sign, leaves the 13 low bits zero; the split hi + lo
+    is within 2^-21 of v."""
+    u = 2.0 ** -10
+    v = torch.tensor([1.0, 1.0 + u / 2, -(1.0 + u / 2), 1.0 + u / 2 - 2.0 ** -23, 2.0 - u / 4,
+                      1.5 * u, 0.0, -3.0], dtype=torch.float32)
+    want = torch.tensor([1.0, 1.0 + u, -(1.0 + u), 1.0, 2.0, 1.5 * u, 0.0, -3.0])
+    assert torch.equal(fb.tf32_round(v), want)
+    r = torch.from_numpy(np.random.default_rng(0).normal(0, 10, 4096).astype(np.float32))
+    hi = fb.tf32_round(r)
+    assert not (hi.view(torch.int32) & 0x1FFF).any()
+    assert float(((hi - r).abs() / r.abs()).max()) <= 2.0 ** -11
+    lo = fb.tf32_round(r - hi)
+    assert float(((hi.double() + lo.double() - r.double()).abs() / r.abs().double()).max()) <= 2.0 ** -21
+
+
+def _block_tf32(args, residual, stride, passes):
+    """The float32 block kernel's arithmetic in plain torch: both 1x1
+    products by ``matmul_tf32x3`` (bias after the sum), the depthwise in
+    float32."""
+    x, w1, b1, wdw, bdw, w2, b2 = args
+    b, h, w, cin = x.shape
+    ch = w1.shape[1]
+    hid = (fb.matmul_tf32x3(x.reshape(-1, cin), w1, passes) + b1).clamp(0.0, 6.0)
+    d = torch.nn.functional.conv2d(hid.reshape(b, h, w, ch).permute(0, 3, 1, 2),
+                                   wdw.permute(2, 0, 1)[:, None], bdw, stride=stride, padding=1,
+                                   groups=ch).clamp(0.0, 6.0)
+    o = fb.matmul_tf32x3(d.permute(0, 2, 3, 1).reshape(-1, ch), w2, passes) + b2
+    o = o.reshape(b, h // stride, w // stride, -1)
+    return o + x if residual else o
+
+
+@pytest.mark.parametrize("name,stride,h,cin,ch,cout,residual", [
+    ("block16", 1, 11, 160, 960, 320, False),
+    ("block13", 2, 22, 96, 576, 160, False),
+    ("block2", 1, 11, 24, 144, 24, True),
+])
+def test_three_tf32_passes_keep_float32_accuracy(name, stride, h, cin, ch, cout, residual):
+    """At 121 output pixels and a served block's widths, the kernel's
+    3xTF32 arithmetic sits within 5e-6 of the largest output from the
+    float64 twin (float32's own rounding), while one TF32 pass misses the
+    tolerance the card holds the kernel to against its twin
+    (``F32_REL_TOL``): the reason for three passes."""
+    rng = np.random.default_rng(cin + ch)
+    draws = [((1, h, h, cin), 1.0), ((cin, ch), cin ** -0.5), ((ch,), 0.1), ((3, 3, ch), 1 / 3),
+             ((ch,), 0.1), ((ch, cout), ch ** -0.5), ((cout,), 0.1)]
+    args = [torch.from_numpy(rng.normal(0, sc, shape).astype(np.float32)) for shape, sc in draws]
+    want = fb.inverted_residual_reference(*[a.double() for a in args], residual=residual,
+                                          stride=stride)
+    scale = float(want.abs().max())
+    errs = {passes: float((_block_tf32(args, residual, stride, passes).double() - want).abs().max())
+            / scale for passes in (1, 3)}
+    assert errs[3] <= 5e-6, errs
+    assert errs[1] > fb.F32_REL_TOL, errs
+
+
 def test_bf16_config_covers_every_tile_up_to_96_pixels():
     """Any Cout up to MAX_COUT has a warp tiling for tiles of up to 6 m16
     tiles, so every shape the wrappers accept has a plan."""
     for cout in range(1, fb.MAX_COUT + 1):
         for pixels in (1, 16, 50, 96):
-            mw, nw, warps = fb.bf16_config(pixels, cout)
+            mw, nw, warps = fb.warp_config(pixels, cout)
             assert 4 * mw * nw <= fb.BF16_ACC_REGS
     plan = fb.plan_bf16(2, 1, 5, 3, 20, 70, 30)  # ragged everything, a 5x3 output
     assert plan.th <= 5 and plan.tw <= 3

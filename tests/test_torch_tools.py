@@ -87,7 +87,7 @@ def test_stem_probe_twin_stage_c_matches_conv2d():
 
 
 def test_probe_stem_folds_equal_formulation_a():
-    """Float32, small shape: the b and c folds give formulation a's output
+    """Float32, small shape: the b, c and d folds give formulation a's output
     to 1e-5, and a is ``lax.conv_general_dilated`` 3x3/s2 pad 1 to 1e-5."""
     rng = np.random.default_rng(0)
     x = rng.normal(0, 1, (2, 16, 16, 3)).astype(np.float32)
@@ -104,10 +104,11 @@ def test_probe_stem_folds_equal_formulation_a():
     ref = jax.lax.conv_general_dilated(jnp.asarray(x), jnp.asarray(k), (2, 2), [(1, 1), (1, 1)],
                                        dimension_numbers=("NHWC", "HWIO", "NHWC"))
     np.testing.assert_allclose(a.permute(0, 2, 3, 1).numpy(), np.asarray(ref), atol=1e-5)
-    # formulation d runs and keeps a's shape; its fold is the JAX tool's, defect and all
+    # formulation d (double space-to-depth, padded cell grid) equals a too
     d = probe_stem.stem_d(probe_stem.nchw(probe_stem.space_to_depth(x, 4), "cpu"),
                           probe_stem.oihw(probe_stem.fold_s2d4(k), "cpu"), f32)
     assert d.shape == a.shape
+    np.testing.assert_allclose(d.numpy(), a.numpy(), atol=1e-5)
 
 
 def test_backward_stage_carries_the_backward():
@@ -214,6 +215,28 @@ def test_probe_fused_tiles_runs_on_the_cpu_when_asked():
                               shape["cout"])
         assert shape["plans"][0]["plan"] == picked._asdict()
         assert all(p["rel_err"] == 0.0 for p in shape["plans"])
+
+
+def test_probe_fused_tiles_takes_the_f32_kernel_on_the_cpu_when_asked(tmp_path):
+    """``--dtype f32``: the same block shapes, each led by ``plan_f32``'s
+    pick, the float32 twin's check at ``F32_REL_TOL``; ``--fit`` reads the
+    saved sweep back and fits the float32 route's constants (here to CPU
+    times: the plumbing, not the card's numbers)."""
+    out = probe_fused_tiles.main(["--dtype", "f32", "--device", "cpu", "--batch", "1", "--size",
+                                  "64", "--iters", "1", "--top", "2"])
+    assert out["dtype"] == "f32" and len(out["shapes"]) == 11
+    for shape in out["shapes"]:
+        stride, x = shape["stride"], shape["x"]
+        picked = fb.plan_f32(stride, 1, x[1] // stride, x[2] // stride, x[3], shape["hidden"],
+                             shape["cout"])
+        assert shape["plans"][0]["plan"] == picked._asdict()
+        assert all(p["rel_err"] == 0.0 for p in shape["plans"])
+    path = tmp_path / "sweep.json"
+    path.write_text(json.dumps(out))
+    fitted = probe_fused_tiles.main(["--fit", str(path)])
+    assert list(fitted["constants"]) == list(fb.COST_CONSTANTS)
+    assert all(c >= 0 for c in fitted["constants"].values())
+    assert fitted["readings"] == sum(len(s["plans"]) for s in out["shapes"])
 
 
 def test_config_equals_the_voc_yaml():
