@@ -8,9 +8,9 @@ Phases, one output line each (any failure raises and exits non-zero):
 1. device   — refuses to run without CUDA; prints the card's name and power
               limit as ``nvidia-smi`` reports them.
 2. build    — compiles ``mobilenet_yolo_tpu_torch/csrc/*.cu`` with nvcc; prints
-              ptxas's registers and spills of every instance of the two
-              tensor-core block kernels (``fused_block_bf16.cu``,
-              ``fused_block.cu``).
+              ptxas's registers and spills of every instance of the three
+              tensor-core kernels (``fused_block_bf16.cu``,
+              ``fused_block.cu``, ``fused_stem.cu``).
 3. kernel   — the NMS suppression kernel against its plain twin on the card,
               bit-equal: random (B=128, K=256), K=60 (64x64 input), chain.
 4. serve    — the full-width VOC MBv2-YOLO (random weights from a seeded
@@ -37,12 +37,12 @@ Phases, one output line each (any failure raises and exits non-zero):
               mode draws one noise stream from one seed).
 7. fused_kernels — the three fused-block kernels of the BatchNorm-folded
               forward (``fused_stem_block0``, ``fused_inverted_residual_s2``,
-              ``fused_inverted_residual``; the blocks run on the tensor
-              cores, float32 in three TF32 passes) against their cuDNN
-              twins, TF32 off, in float32 and bf16, at the batch-128
-              352x352 shape of every backbone block, an unaligned width and
-              odd output widths; and the float32 block kernel against the
-              float64 twin at block 16's shape.
+              ``fused_inverted_residual``; all on the tensor cores, float32
+              in three TF32 passes) against their cuDNN twins, TF32 off, in
+              float32 and bf16, at the batch-128 352x352 shape of every
+              backbone block, an unaligned width and odd output widths; and
+              the float32 block kernel (block 16's shape) and stem kernel
+              (its b128 352x352 shape) against the float64 twin.
 8. serve_folded — the same VOC model folded (``fold_batchnorm``) and served
               through ``make_predict_fn``: batch 1 and 128 at 352x352 in
               float32, uint8 normalize and bf16. Checks each request
@@ -67,7 +67,10 @@ Phases, one output line each (any failure raises and exits non-zero):
 11. timing  — CUDA-event throughput at batch 128 (f32, bf16, u8), unfolded
               and folded, batch-1 latency, the train step per mode and
               dtype, and each kernel's time beside its twin's and its bound
-              (each fused kernel at every block shape, float32 and bf16).
+              (each fused kernel at every block shape, float32 and bf16);
+              the augmentation kernels' launches apart (``torch.profiler``:
+              the statistics pre-pass, the compose or pixel pass) at 352
+              and 416.
 
 The line before the last also carries, for the three fused kernels, the
 float32 twins' kernels alone per b128 predict (``library_device_ms``, from
@@ -112,7 +115,8 @@ from mobilenet_yolo_tpu_torch.train import (GEOMETRY_BATCH_KEYS, create_train_st
                                             make_geometry_train_step, make_train_step,
                                             random_geometry_batch)
 from mobilenet_yolo_tpu_torch.utils.profiling import (BF16_FLOPS, F32_FLOPS, HBM_BYTES_PER_S,
-                                                      TF32_FLOPS, bound_ms, device_ms)
+                                                      TF32_FLOPS, bound_ms, device_ms,
+                                                      kernel_ms_by_name)
 
 SEED = 0
 BATCH = 128
@@ -198,9 +202,9 @@ LAUNCH_COUNTERS = (suppress, slot_aug, aug_compose, *FUSED.values(), stem_probe)
 # stem kernel keeps float32 inside and rounds its output once
 FUSED_F32_REL_TOL = 1e-4
 FUSED_BF16_REL_TOL = fb.BF16_REL_TOL
-# the float32 block kernel against the float64 twin, relative to the
-# largest output: float32's own rounding (a few 1e-7; one TF32 pass would
-# sit at 2-4e-4)
+# the float32 block and stem kernels against the float64 twin, relative to
+# the largest output: float32's own rounding (a few 1e-7; one TF32 pass
+# would sit at 2-5e-4)
 FUSED_F64_REL_TOL = 1e-5
 # folded and fused heads vs the unfolded model's on the served (calibrated)
 # weights in float32: the calibrated random network amplifies float32
@@ -253,14 +257,17 @@ def phase_build() -> None:
     log = lib.with_suffix(".log").read_text()
     ptxas = [line.strip() for line in log.splitlines() if "registers" in line or "spill" in line]
     report("build", seconds=f"{seconds:.2f}", library=lib.name, ptxas=" | ".join(ptxas))
-    # the block kernels' instances <S, MW, NW, warps>: registers, spills
+    # the tensor-core kernels' instances (blocks <S, MW, NW, warps>, the
+    # stem <type, MW, NW>): registers, spills
     for source, symbol, key in (("fused_block_bf16.cu", "fused_block_bf16_kernelI", "bf16_kernel"),
-                                ("fused_block.cu", "fused_block_f32_kernelI", "f32_kernel")):
+                                ("fused_block.cu", "fused_block_f32_kernelI", "f32_kernel"),
+                                ("fused_stem.cu", "fused_stem_kernelI", "stem_kernel")):
         instance = None
         for line in log.split(f"== {source}")[1].split("\n== ")[0].splitlines():
             if "Compiling entry function" in line:
-                instance = line.split(symbol)[1].split("EEEv")[0]
-                instance = "<" + ",".join(instance.replace("Li", " ").replace("E", "").split()) + ">"
+                instance = line.split(symbol)[1].split("EEEv")[0].replace("13__nv_bfloat16", " bf16 ")
+                instance = instance.replace("Li", " ").replace("E", " ").split()
+                instance = "<" + ",".join("f32" if a == "f" else a for a in instance) + ">"
             elif "spill stores" in line:
                 spill_bytes = int(line.split(",")[1].split()[0])
             elif "Used" in line and instance:
@@ -605,7 +612,8 @@ def tile_of(kernel: str, dt_name: str, x_shape: tuple, ch: int, cout: int) -> tu
     """The output tile the kernel's wrapper picks for this launch."""
     b, h, w, cin = x_shape
     if kernel == "fused_stem_block0":
-        return fb.pick_tile("stem", h // 2, w // 2, 3, cout)
+        kind = "stem" + ("_bf16" if dt_name == "bf16" else "")
+        return fb.pick_tile(kind, h // 2, w // 2, 3, cout, ch, b)
     stride = 2 if kernel == "fused_inverted_residual_s2" else 1
     kind = f"s{stride}" + ("_bf16" if dt_name == "bf16" else "")
     return fb.pick_tile(kind, h // stride, w // stride, cin, cout, ch, b)
@@ -649,11 +657,12 @@ def phase_fused_kernels(device) -> tuple[dict, dict, list]:
             if (blocks, kernel, x_shape, ch, cout, residual) in shapes:
                 cases.append((blocks, kernel, x_shape, ch, cout, dt_name, residual, args))
 
-    # the float32 block kernel's three TF32 passes against the float64 twin
-    # at block 16's widths (Cin 160, Ch 960, Cout 320), beside the float32
-    # twin's own error
+    # the float32 kernels' three TF32 passes against the float64 twin at
+    # block 16's widths (Cin 160, Ch 960, Cout 320) and at the stem's b128
+    # 352x352 shape, beside the float32 twin's own error
     for blocks, kernel, x_shape, ch, cout, dt_name, residual, args in cases:
-        if dt_name == "f32" and kernel == "fused_inverted_residual" and cout == 320:
+        if dt_name == "f32" and (kernel == "fused_stem_block0" or
+                                 kernel == "fused_inverted_residual" and cout == 320):
             want = run_fused(kernel, [a.double() for a in args], residual, twin=True)
             scale = float(want.abs().max())
             err = float((run_fused(kernel, args, residual).double() - want).abs().max()) / scale
@@ -911,13 +920,27 @@ def phase_timing(device, smi: str, state: dict) -> dict:
                ms_per_step=f"{step_ms:.3f}", img_per_s=f"{TRAIN_BATCH * 1000.0 / step_ms:.1f}",
                tf32=False, card=f"'{smi}'")
 
+    # the augmentation kernels' launches apart: the statistics pre-pass
+    # (its passes and finish, or PR 6's one block a slot) and the compose
+    # or pixel pass, device time per call from torch.profiler
+    for stage in TRAIN_SIZES:
+        args = compose_args(state["batches"][stage], AUG_SEED)
+        by_name = kernel_ms_by_name(lambda: aug_compose(*args, (stage, stage)), 20)
+        report("timing", what=f"aug_compose_b{TRAIN_BATCH}_s{stage}_launches",
+               prepass_ms=f"{sum(v for k, v in by_name.items() if k != 'compose_kernel'):.4f}",
+               **{f"{k}_ms": f"{v:.4f}" for k, v in by_name.items()}, card=f"'{smi}'")
+    args = slot_args(g, AUG_SEED)
+    by_name = kernel_ms_by_name(lambda: slot_aug(*args), 20)
+    report("timing", what=f"slot_aug_n{TRAIN_BATCH * 4}_s{size}_launches",
+           prepass_ms=f"{sum(v for k, v in by_name.items() if k != 'slot_apply_kernel'):.4f}",
+           **{f"{k}_ms": f"{v:.4f}" for k, v in by_name.items()}, card=f"'{smi}'")
+
     # each fused kernel at every block shape of the folded b128 predict,
     # beside its twin (the cuDNN three-conv chain, channels_last, TF32 off:
     # also the library yardstick) and its bound; bf16 bounds use the bf16
-    # tensor-core rate; float32 bounds the route of the kernel (the block
-    # kernels: three TF32 passes at the TF32 rate; the stem: CUDA cores),
-    # with the CUDA-core bound beside them. Sums per predict: float32
-    # under the contract's keys, bf16 under bf16_*
+    # tensor-core rate; float32 bounds three TF32 passes at the TF32 rate
+    # (every fused kernel's route), with the CUDA-core bound beside them.
+    # Sums per predict: float32 under the contract's keys, bf16 under bf16_*
     for name in FUSED:
         times[name] = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
                        "library_device_ms": 0.0, "bound_ms": 0.0, "fma_bound_ms": 0.0,
@@ -930,10 +953,8 @@ def phase_timing(device, smi: str, state: dict) -> dict:
         twin_ms = cuda_ms(lambda: run_fused(kernel, args, residual, twin=True), iters=10)
         elem = 4 if dt_name == "f32" else 2
         flops, nbytes = fused_work(kernel, x_shape, ch, cout, elem)
-        tf32x3 = dt_name == "f32" and kernel != "fused_stem_block0"
         # three TF32 passes do 3x the operations at the TF32 rate
-        ops, rate = ((3 * flops, TF32_FLOPS) if tf32x3
-                     else (flops, F32_FLOPS if dt_name == "f32" else BF16_FLOPS))
+        ops, rate = (3 * flops, TF32_FLOPS) if dt_name == "f32" else (flops, BF16_FLOPS)
         bound, bound_by = bound_ms(ops, nbytes, rate)
         fma_bound = bound_ms(flops, nbytes, F32_FLOPS)[0]
         # the twin's three convs leave the card idle between launches at

@@ -1,8 +1,9 @@
 // Device functions shared by the two augmentation kernels (slot_aug.cu,
 // aug_compose.cu): the counter-based noise generator, Box-Muller, the five
 // photometric ops of the host-planned program, and the per-slot statistics
-// pre-pass. Included by both .cu files; everything here sits in an
-// anonymous namespace, so each translation unit holds its own copy.
+// pre-pass with its launches. Included by both .cu files; everything here
+// sits in an anonymous namespace, so each translation unit holds its own
+// copy.
 //
 // Arithmetic follows mobilenet_yolo_tpu/kernels/pallas_aug.py (the TPU
 // kernels) and ops/device_augment.py, in f32, op for op. The plain-torch
@@ -19,9 +20,13 @@
 namespace myt_aug {
 namespace {
 
-constexpr int kSteps = 5;           // photometric program length
-constexpr int kStats = 8;           // per slot: 5 contrast means, 3 window means
-constexpr int kStatsThreads = 512;  // one block per slot in the pre-pass
+constexpr int kSteps = 5;            // photometric program length
+constexpr int kStats = 8;            // per slot: 5 contrast means, 3 window means
+constexpr int kStatsThreads = 256;   // threads of a pre-pass block
+constexpr int kStatsPixels = 2048;   // pixels of a slot one pre-pass item reduces
+constexpr int kStatsBlocks = 1056;   // pre-pass blocks: 8 on each of an H100's 132 SMs
+constexpr int kPartials = 4;         // doubles an item leaves: a luma sum, or r, g, b and a count
+constexpr int kPasses = kSteps + 1;  // passes of a slot at most: 5 contrast steps, the window
 constexpr float kTwoPi = 6.283185307179586f;
 
 // Everything a kernel needs to recompute one staged slot's pixels after
@@ -188,7 +193,8 @@ __device__ __forceinline__ void pixel_state(const SlotArgs& a, uint32_t key, int
   for (int t = 0; t < stop; ++t) apply_op(ops[t], facs[t], means[t], v);
 }
 
-// Sum of `val` over the block, in double, in a fixed order (deterministic).
+// Sum of `val` over the block, in double, in a fixed order: each warp's
+// lanes by shuffles, then the warps in order by thread 0 (deterministic).
 template <int N>
 __device__ __forceinline__ void block_sum(double (&val)[N], double (*scratch)[kStatsThreads / 32]) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -206,76 +212,191 @@ __device__ __forceinline__ void block_sum(double (&val)[N], double (*scratch)[kS
       val[i] = s;
     }
   }
-  __syncthreads();
 }
 
-// Per-slot statistics pre-pass, one block per slot. The contrast step
-// needs the mean luma of the whole slot as the earlier steps left it, a
-// reduction in the middle of a pointwise program (the TPU kernel held the
-// slot in VMEM; a 3 x 416^2 f32 slot is ten times an SM's shared memory).
-// So the block walks the program: at each contrast step it recomputes the
-// noise and the steps before it for every pixel and reduces their luma,
-// then carries the mean on. stats[n] = (mean before step 0..4, window
-// mean r, g, b); a mean slot of a step that is not contrast is left 0.
-//
-// With `win_rect` set and fill_from_mean[n], it also reduces the fully
-// programmed slot over the source window mask (device_augment.py:330-341:
-// the rect mirrored for a flipped tile, pixel centres against the edges),
-// the colour the compose kernel fills the tile with.
-//
-// active (may be null: every slot) skips a slot outright.
-__global__ void __launch_bounds__(kStatsThreads)
-slot_stats_kernel(SlotArgs a, const int32_t* active, const float* win_rect,
-                  const int32_t* fill_from_mean, const int32_t* flip, float* stats) {
-  __shared__ double scratch[4][kStatsThreads / 32];
-  __shared__ float means[kSteps];
-  const int n = blockIdx.x;
-  if (active != nullptr && active[n] == 0) return;
-  const uint32_t key = slot_key(a.seed, n);
-  const int s = a.size;
-  const int npix = s * s;
-  if (threadIdx.x < kSteps) means[threadIdx.x] = 0.0f;
-  __syncthreads();
+// What the pre-pass reads besides the slots: which slots are active (null:
+// every slot) and, for the fill-window pass, each slot's source rect,
+// fill-from-mean flag and flip (win_rect null: no such pass); and its
+// scratch.
+struct StatsArgs {
+  const int32_t* active;
+  const float* win_rect;
+  const int32_t* fill_from_mean;
+  const int32_t* flip;
+  double* partial;  // (N, kPasses, chunks, kPartials): each item's sums
+  int32_t* work;    // (kPasses, N + 1): per level its count, then (slot << 3 | step) of each pass
+  int chunks;       // pixel chunks of a slot: ceil(S * S / kStatsPixels)
+};
 
-  for (int t = 0; t < kSteps; ++t) {
-    if (a.ops[n * kSteps + t] != 1) continue;  // same t in every thread
-    double acc[1] = {0.0};
-    for (int p = threadIdx.x; p < npix; p += kStatsThreads) {
-      float v[3];
-      pixel_state(a, key, n, p / s, p % s, t, means, v);
-      acc[0] += luma(v[0], v[1], v[2]);
+__device__ __forceinline__ double* partial_at(const StatsArgs& st, int n, int step, int c) {
+  return st.partial + ((static_cast<size_t>(n) * kPasses + step) * st.chunks + c) * kPartials;
+}
+
+// Value i of pass `step`'s partial sums of slot n over its chunks, by one
+// warp: lane l adds chunks l, l + 32, ... in order, then a butterfly of
+// shuffles adds the lanes (IEEE addition commutes, so every lane ends with
+// the same bits). Every reader of a sum (the later passes, the finishing
+// pass) adds it this way, so all of them see the same value.
+__device__ __forceinline__ double warp_partial_sum(const StatsArgs& st, int n, int step, int i) {
+  const int lane = threadIdx.x & 31;
+  double s = 0.0;
+  for (int c = lane; c < st.chunks; c += 32) s += partial_at(st, n, step, c)[i];
+  for (int m = 16; m > 0; m >>= 1) s += __shfl_xor_sync(0xffffffffU, s, m);
+  return s;
+}
+
+// The pre-pass's plan, one block: the passes of every active slot, each
+// contrast step of its program in order, then the fill-window pass where
+// the slot fills from the mean. A pass's level is its place in its slot's
+// list, so a pass needs only the passes of lower levels: work[level] lists
+// the passes of that level, slot by slot (a block-wide scan of ballots).
+__global__ void __launch_bounds__(1024) slot_plan_kernel(SlotArgs a, StatsArgs st) {
+  __shared__ int warp_counts[32];
+  __shared__ int filled[kPasses];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, warps = blockDim.x >> 5;
+  if (threadIdx.x < kPasses) filled[threadIdx.x] = 0;
+  __syncthreads();
+  for (int base = 0; base < a.n_slots; base += blockDim.x) {
+    const int n = base + threadIdx.x;
+    int steps[kPasses];
+    int count = 0;
+    if (n < a.n_slots && (st.active == nullptr || st.active[n] != 0)) {
+      for (int t = 0; t < kSteps; ++t) {
+        if (a.ops[n * kSteps + t] == 1) steps[count++] = t;
+      }
+      if (st.win_rect != nullptr && st.fill_from_mean[n] != 0) steps[count++] = kSteps;
+    }
+    for (int level = 0; level < kPasses; ++level) {
+      const unsigned ballot = __ballot_sync(0xffffffffU, count > level);
+      if (lane == 0) warp_counts[warp] = __popc(ballot);
+      __syncthreads();
+      int before = 0, total = 0;
+      for (int w = 0; w < warps; ++w) {
+        before += w < warp ? warp_counts[w] : 0;
+        total += warp_counts[w];
+      }
+      if (count > level) {
+        const int at = filled[level] + before + __popc(ballot & ((1U << lane) - 1U));
+        st.work[level * (a.n_slots + 1) + 1 + at] = (n << 3) | steps[level];
+      }
+      __syncthreads();
+      if (threadIdx.x == 0) filled[level] += total;
+      __syncthreads();
+    }
+  }
+  if (threadIdx.x < kPasses) st.work[threadIdx.x * (a.n_slots + 1)] = filled[threadIdx.x];
+}
+
+// One level of the per-slot statistics pre-pass, its items (a pass of a
+// slot x a chunk of kStatsPixels pixels) spread over the blocks. The
+// contrast step needs the mean luma of the whole slot as the earlier steps
+// left it, a reduction in the middle of a pointwise program (the TPU kernel
+// held the slot in VMEM; a 3 x 416^2 float32 slot is ten times an SM's
+// shared memory). So a contrast pass at step t recomputes the noise and
+// the steps before t for its chunk, with the means of the slot's earlier
+// contrast steps (lower levels) formed from their partials, and leaves the
+// chunk's float64 luma sum. The window pass reduces the fully programmed
+// slot over the source window mask (device_augment.py:330-341: the rect
+// mirrored for a flipped tile, pixel centres against the edges) to r, g,
+// b sums and a pixel count. No atomics: two runs give the same bits.
+__global__ void __launch_bounds__(kStatsThreads)
+slot_partial_kernel(SlotArgs a, StatsArgs st, int level) {
+  __shared__ double scratch[kPartials][kStatsThreads / 32];
+  __shared__ float means[kSteps];
+  const int32_t* list = st.work + level * (a.n_slots + 1);
+  const int items = list[0] * st.chunks;
+  const int s = a.size, npix = s * s;
+  for (int item = blockIdx.x; item < items; item += gridDim.x) {
+    const int entry = list[1 + item / st.chunks], c = item % st.chunks;
+    const int n = entry >> 3, step = entry & 7;
+    const int32_t* ops = a.ops + n * kSteps;
+    const int t = threadIdx.x >> 5;  // warp t forms the mean of step t
+    if (t < kSteps) {
+      const float m =
+          t < step && ops[t] == 1 ? static_cast<float>(warp_partial_sum(st, n, t, 0) / npix) : 0.0f;
+      if ((threadIdx.x & 31) == 0) means[t] = m;
+    }
+    __syncthreads();
+
+    const uint32_t key = slot_key(a.seed, n);
+    const int p0 = c * kStatsPixels, p1 = min(npix, p0 + kStatsPixels);
+    double acc[kPartials] = {0.0, 0.0, 0.0, 0.0};
+    if (step < kSteps) {
+      for (int p = p0 + threadIdx.x; p < p1; p += kStatsThreads) {
+        float v[3];
+        pixel_state(a, key, n, p / s, p % s, step, means, v);
+        acc[0] += luma(v[0], v[1], v[2]);
+      }
+    } else {
+      const float* sr = st.win_rect + n * 4;
+      const bool flipped = st.flip[n] != 0;
+      const float x0 = flipped ? 1.0f - sr[2] : sr[0];
+      const float x1 = flipped ? 1.0f - sr[0] : sr[2];
+      for (int p = p0 + threadIdx.x; p < p1; p += kStatsThreads) {
+        const int y = p / s, x = p % s;
+        const float yc = (static_cast<float>(y) + 0.5f) / s;
+        const float xc = (static_cast<float>(x) + 0.5f) / s;
+        if (!(yc >= sr[1] && yc < sr[3] && xc >= x0 && xc < x1)) continue;
+        float v[3];
+        pixel_state(a, key, n, y, x, kSteps, means, v);
+        acc[0] += v[0];
+        acc[1] += v[1];
+        acc[2] += v[2];
+        acc[3] += 1.0;
+      }
     }
     block_sum(acc, scratch);
-    if (threadIdx.x == 0) means[t] = static_cast<float>(acc[0] / npix);
-    __syncthreads();
+    if (threadIdx.x == 0) {
+      double* out = partial_at(st, n, step, c);
+#pragma unroll
+      for (int i = 0; i < kPartials; ++i) out[i] = acc[i];
+    }
+    __syncthreads();  // the next item rewrites means and scratch
   }
+}
 
+// stats[n] = (mean before step 0..4, window mean r, g, b) of every active
+// slot, one warp a slot, from the passes' partials; a mean of a step that
+// is not contrast is 0, and the window means are written only for a slot
+// that fills from the mean.
+__global__ void slot_stats_finish_kernel(SlotArgs a, StatsArgs st, float* stats) {
+  const int n = (blockIdx.x * blockDim.x + threadIdx.x) >> 5, lane = threadIdx.x & 31;
+  if (n >= a.n_slots || (st.active != nullptr && st.active[n] == 0)) return;
+  const int npix = a.size * a.size;
   float* out = stats + static_cast<size_t>(n) * kStats;
-  if (threadIdx.x < kSteps) out[threadIdx.x] = means[threadIdx.x];
-  if (win_rect == nullptr || fill_from_mean[n] == 0) return;
+  for (int t = 0; t < kSteps; ++t) {
+    const float m = a.ops[n * kSteps + t] == 1
+                        ? static_cast<float>(warp_partial_sum(st, n, t, 0) / npix)
+                        : 0.0f;
+    if (lane == 0) out[t] = m;
+  }
+  if (st.win_rect == nullptr || st.fill_from_mean[n] == 0) return;
+  double sum[kPartials];
+#pragma unroll
+  for (int i = 0; i < kPartials; ++i) sum[i] = warp_partial_sum(st, n, kSteps, i);
+  const double count = sum[3] < 1.0 ? 1.0 : sum[3];
+  if (lane == 0) {
+    for (int ch = 0; ch < 3; ++ch) out[kSteps + ch] = static_cast<float>(sum[ch] / count);
+  }
+}
 
-  const float* sr = win_rect + n * 4;
-  const bool flipped = flip[n] != 0;
-  const float x0 = flipped ? 1.0f - sr[2] : sr[0];
-  const float x1 = flipped ? 1.0f - sr[0] : sr[2];
-  double acc[4] = {0.0, 0.0, 0.0, 0.0};  // r, g, b sums and the pixel count
-  for (int p = threadIdx.x; p < npix; p += kStatsThreads) {
-    const int y = p / s, x = p % s;
-    const float yc = (static_cast<float>(y) + 0.5f) / s;
-    const float xc = (static_cast<float>(x) + 0.5f) / s;
-    if (!(yc >= sr[1] && yc < sr[3] && xc >= x0 && xc < x1)) continue;
-    float v[3];
-    pixel_state(a, key, n, y, x, kSteps, means, v);
-    acc[0] += v[0];
-    acc[1] += v[1];
-    acc[2] += v[2];
-    acc[3] += 1.0;
+// The pixel chunks of an S x S slot, and so the partials' third extent
+// (kernels/slot_aug.py:stats_scratch).
+__host__ __device__ constexpr int stats_chunks(int size) {
+  return (size * size + kStatsPixels - 1) / kStatsPixels;
+}
+
+// The pre-pass on `stream`: the plan, one launch per level (each reads the
+// partials of the levels before it; a level no slot reaches finds no
+// items), then the per-slot statistics.
+inline void launch_slot_stats(const SlotArgs& a, const StatsArgs& st, float* stats,
+                              cudaStream_t stream) {
+  slot_plan_kernel<<<1, 1024, 0, stream>>>(a, st);
+  const int levels = st.win_rect != nullptr ? kPasses : kSteps;
+  for (int level = 0; level < levels; ++level) {
+    slot_partial_kernel<<<kStatsBlocks, kStatsThreads, 0, stream>>>(a, st, level);
   }
-  block_sum(acc, scratch);
-  if (threadIdx.x == 0) {
-    const double c = acc[3] < 1.0 ? 1.0 : acc[3];
-    for (int ch = 0; ch < 3; ++ch) out[kSteps + ch] = static_cast<float>(acc[ch] / c);
-  }
+  slot_stats_finish_kernel<<<(a.n_slots + 3) / 4, 128, 0, stream>>>(a, st, stats);
 }
 
 }  // namespace

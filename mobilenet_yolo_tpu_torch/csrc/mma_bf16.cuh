@@ -25,6 +25,14 @@ namespace myt_mma {
 __host__ __device__ constexpr int ldsm_row(int lane) { return lane & 15; }
 __host__ __device__ constexpr int ldsm_col(int lane) { return (lane >> 4) << 3; }
 
+// A register i (0-3) of an m16n8k16 bf16 tile in lane l (PTX ISA, "Matrix
+// Fragments for mma.m16n8k16"): row l / 4 (+ 8 for registers 1 and 3),
+// columns c and c + 1 (c in the low half) with c = 2 * (l % 4) (+ 8 for
+// registers 2 and 3). ldmatrix .x4 over a row-major tile loads exactly
+// this; the maps are for fragments gathered element by element.
+__host__ __device__ constexpr int bf16_a_row(int lane, int i) { return (lane >> 2) + ((i & 1) << 3); }
+__host__ __device__ constexpr int bf16_a_col(int lane, int i) { return ((lane & 3) << 1) + ((i >> 1) << 3); }
+
 // accumulator register i (0-3) of an m16n8 tile in lane l: row l / 4
 // (+ 8 for registers 2 and 3), column 2 * (l % 4) + i % 2
 __host__ __device__ constexpr int acc_row(int lane, int i) { return (lane >> 2) + ((i >> 1) << 3); }

@@ -18,9 +18,11 @@
 // mean luma of the whole slot as the earlier steps left it.
 //
 // What the design does about it:
-//  * a pre-pass (slot_stats_kernel, one block per slot) recomputes the
-//    pointwise prefix up to each contrast step and reduces it to one
-//    scalar; the slot's pixels are never staged in between;
+//  * a pre-pass (launch_slot_stats, aug_common.cuh: each slot's contrast
+//    steps in levels, a level's pixel chunks spread over all SMs, float64
+//    partial sums added in a fixed order) recomputes the pointwise prefix
+//    up to each contrast step and reduces it to one scalar; the slot's
+//    pixels are never staged in between;
 //  * then one thread per pixel applies noise and the whole program with
 //    those scalars known, all three channels in registers, so the u8 slot
 //    is read once and the output written once;
@@ -59,15 +61,19 @@ slot_apply_kernel(SlotArgs a, const float* stats, T* out) {
 }  // namespace
 
 // Launches the pre-pass and the pixel pass on `stream`; returns
-// cudaGetLastError() (0 on success). `stats` is (N, 8) f32 scratch.
+// cudaGetLastError() (0 on success). `stats` is (N, 8) f32 scratch,
+// `partial` (N, 6, stats_chunks(S), 4) float64 and `work` (6, N + 1) int32
+// scratch.
 extern "C" int myt_slot_aug(const uint8_t* slots, int n, int size, int seed,
                             const int32_t* gate, const float* scale, const int32_t* pc,
                             const int32_t* ops, const float* facs, const uint32_t* bits,
-                            float* stats, void* out, int out_bf16, void* stream) {
+                            float* stats, double* partial, int32_t* work, void* out,
+                            int out_bf16, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const SlotArgs a{slots, n, size, seed, gate, scale, pc, ops, facs, bits};
-  myt_aug::slot_stats_kernel<<<n, myt_aug::kStatsThreads, 0, st>>>(a, nullptr, nullptr,
-                                                                   nullptr, nullptr, stats);
+  const myt_aug::StatsArgs sa{nullptr, nullptr, nullptr, nullptr, partial, work,
+                              myt_aug::stats_chunks(size)};
+  myt_aug::launch_slot_stats(a, sa, stats, st);
   const size_t total = static_cast<size_t>(n) * size * size;
   const unsigned blocks = static_cast<unsigned>((total + 255) / 256);
   if (out_bf16) {

@@ -101,16 +101,16 @@ def load() -> ctypes.CDLL:
                                      ctypes.c_int, ctypes.c_void_p]
     lib.myt_nms_suppress.restype = ctypes.c_int
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    # slots, N, S, seed, gate, scale, pc, ops, facs, bits, stats, out,
-    # out_bf16, stream
+    # slots, N, S, seed, gate, scale, pc, ops, facs, bits, stats, partial,
+    # work, out, out_bf16, stream
     lib.myt_slot_aug.argtypes = [ptr, i32, i32, i32, ptr, ptr, ptr, ptr, ptr, ptr,
-                                 ptr, ptr, i32, ptr]
+                                 ptr, ptr, ptr, ptr, i32, ptr]
     lib.myt_slot_aug.restype = ctypes.c_int
     # slots, B, T, S, seed, gate, scale, pc, ops, facs, bits, src_rect,
     # dst_rect, fill_rect, fill_color, fill_from_mean, flip, active, stats,
-    # out_h, out_w, out, stream
+    # partial, work, out_h, out_w, out, stream
     lib.myt_aug_compose.argtypes = [ptr, i32, i32, i32, i32, ptr, ptr, ptr, ptr, ptr,
-                                    ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr,
+                                    ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr,
                                     i32, i32, ptr, ptr]
     lib.myt_aug_compose.restype = ctypes.c_int
     # x, w1, b1, wdw, bdw, w2, b2, out, batch, h, w, cin, ch, cout, stride,
@@ -120,8 +120,8 @@ def load() -> ctypes.CDLL:
         getattr(lib, name).argtypes = [ptr] * 8 + [i32] * 14 + [ptr]
         getattr(lib, name).restype = ctypes.c_int
     # x, k_stem, b_stem, wdw, bdw, w2, b2, out, batch, h, w, ch, cout, th,
-    # tw, bf16, stream
-    lib.myt_fused_stem.argtypes = [ptr] * 8 + [i32] * 8 + [ptr]
+    # tw, mw, nw, warps, vec, bf16, stream
+    lib.myt_fused_stem.argtypes = [ptr] * 8 + [i32] * 12 + [ptr]
     lib.myt_fused_stem.restype = ctypes.c_int
     # x, w, bias, out, batch, s, stage, stream
     lib.myt_stem_probe.argtypes = [ptr] * 4 + [i32] * 3 + [ptr]

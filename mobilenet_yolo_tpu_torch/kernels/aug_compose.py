@@ -21,7 +21,8 @@ from __future__ import annotations
 import torch
 
 from mobilenet_yolo_tpu_torch.kernels import _build
-from mobilenet_yolo_tpu_torch.kernels.slot_aug import STATS, _check, plan_args, slot_aug_reference
+from mobilenet_yolo_tpu_torch.kernels.slot_aug import (_check, plan_args, slot_aug_reference,
+                                                       stats_scratch)
 from mobilenet_yolo_tpu_torch.ops.device_augment import geometric_compose
 
 
@@ -90,7 +91,7 @@ def aug_compose(slots: torch.Tensor, seed: int, noise_gate: torch.Tensor,
     src, dst, fill, color = (x.to(f32).contiguous()
                              for x in (src_rect, dst_rect, fill_rect, fill_color))
     ffm, flp, act = (x.to(i32).contiguous() for x in (fill_from_mean, flip, active))
-    stats = torch.empty((b * t, STATS), dtype=f32, device=slots.device)
+    stats, partial, work = stats_scratch(b * t, s, slots.device)
     out = torch.empty((b, out_h, out_w, 3), dtype=torch.bfloat16, device=slots.device)
     with torch.cuda.device(slots.device):
         stream = torch.cuda.current_stream(slots.device).cuda_stream
@@ -99,7 +100,8 @@ def aug_compose(slots: torch.Tensor, seed: int, noise_gate: torch.Tensor,
             pc.data_ptr(), ops.data_ptr(), facs.data_ptr(),
             None if bits is None else bits.data_ptr(), src.data_ptr(), dst.data_ptr(),
             fill.data_ptr(), color.data_ptr(), ffm.data_ptr(), flp.data_ptr(), act.data_ptr(),
-            stats.data_ptr(), out_h, out_w, out.data_ptr(), stream)
+            stats.data_ptr(), partial.data_ptr(), work.data_ptr(), out_h, out_w, out.data_ptr(),
+            stream)
     if err != 0:
         raise RuntimeError(f"aug_compose kernel launch failed: CUDA error {err}")
     aug_compose.launches += 1

@@ -14,7 +14,10 @@ the port's ``channels_last`` NCHW tensor, so the model needs no copy),
   tensors in ``csrc/fused_block_bf16.cu``; each with its launch plans
   (``plan_f32``, ``plan_bf16``) from one cost model fitted on the card;
 * ``fused_stem_block0`` replaces ``pallas_fused.py:355`` (3x3/s2 stem with
-  pad 1, then block 0's depthwise and project) with ``csrc/fused_stem.cu``.
+  pad 1, then block 0's depthwise and project) with ``csrc/fused_stem.cu``,
+  both products on the tensor cores too (the stem as an implicit GEMM over
+  the tile's hidden window, K = 27 taps padded to 32), with its launch plan
+  from ``plan_stem``.
 
 ``inverted_residual_reference`` and ``stem_block0_reference`` are the plain
 twins, counterparts of ``xla_inverted_residual`` (``:243``) and
@@ -27,8 +30,9 @@ them in plain torch for the tests). In bf16 the twins round the hidden
 tensor and each conv's output to bf16, as ``xla_inverted_residual`` rounds
 to ``x.dtype``. The bf16 block kernel rounds where the Pallas kernel does:
 float32 hidden tensor and depthwise, the depthwise output rounded to bf16
-for the project, one rounding of the output (``BF16_REL_TOL``). The stem
-kernel keeps everything in float32 inside and rounds its output once.
+for the project, one rounding of the output (``BF16_REL_TOL``); the stem
+kernel rounds at the same points (its stem's products of bf16 operands are
+exact, summed in float32).
 
 Biases may be float32 or the activations' type; the kernels read them as
 float32.
@@ -44,12 +48,18 @@ import torch.nn.functional as F
 
 from mobilenet_yolo_tpu_torch.kernels import _build
 
-# The stem kernel (csrc/fused_stem.cu, csrc/fused_common.cuh)
-CHUNK = 32          # hidden channels per pass, fused_common.cuh:kChunk
-TILE_PIX = 64       # output pixels per thread block, kTilePix
-MAX_COUT = 320      # output channels one block holds, kMaxCout
 SMEM_LIMIT = 232448  # dynamic shared memory one block may use on Hopper
+# output channels the fused kernels take: the widest project warp tiling,
+# (3, 5) on 8 warps, covers 40 n8 tiles with one warp row of 48 pixels
+MAX_COUT = 320
 _DTYPES = (torch.float32, torch.bfloat16)
+
+# The stem kernel on the tensor cores (csrc/fused_stem.cu): hidden channels
+# per chunk (kKc), output pixels per block at most (kMaxTile), and the
+# project's warp tilings it instantiates on 8 warps (launch_config).
+STEM_CHUNK = 32
+STEM_MAX_TILE = 256
+STEM_CONFIGS = ((2, 2, 8), (2, 3, 8), (2, 4, 8), (4, 3, 8), (3, 5, 8))
 
 # The block kernels on the tensor cores (csrc/fused_block_bf16.cu,
 # csrc/fused_block.cu): hidden channels per chunk (kKc; 48 = 3 x 16 and
@@ -120,52 +130,22 @@ def stem_block0_reference(x: torch.Tensor, k_stem, b_stem, wdw, bdw, w2, b2) -> 
 
 # ----------------------------------------------------------------- tiling --
 
-def _round4(v: int) -> int:
-    return (v + 3) // 4 * 4
-
-
-def _chunk_floats(wpp: int, cout: int) -> int:
-    return CHUNK * (wpp + TILE_PIX + _round4(cout) + 11)
-
-
-def _stem_smem_bytes(th: int, tw: int, cout: int) -> int:
-    """csrc/fused_stem.cu:stem_smem_floats, in bytes."""
-    wpp = _round4((th + 2) * (tw + 2))
-    return 4 * (_round4(3 * (2 * th + 5) * (2 * tw + 5)) + 27 * CHUNK + _chunk_floats(wpp, cout))
-
-
 @functools.lru_cache(maxsize=1024)
 def pick_tile(kind: str, ho: int, wo: int, cin: int, cout: int, ch: int = 0,
               batch: int = 128) -> tuple[int, int]:
-    """The output tile (th, tw) for ``kind`` "stem" (the stem kernel), "s1"
-    or "s2" (the float32 block kernel: ``plan_f32``'s tile) or "s1_bf16",
-    "s2_bf16" (the bf16 block kernel: ``plan_bf16``'s tile); the block
-    kinds also need ``ch`` and ``batch``.
-
-    For the stem, th * tw <= TILE_PIX and the tile minimises the modelled
-    work per hidden channel (the stem over the window, recomputed on the
-    halo, plus the depthwise and project over all TILE_PIX slots) within
-    the shared memory a block has."""
-    if kind != "stem":
-        if ch < 1:
-            raise ValueError(f"pick_tile({kind!r}) needs the hidden width ch")
-        planner = plan_bf16 if kind.endswith("_bf16") else plan_f32
-        plan = planner(int(kind[1]), batch, ho, wo, cin, ch, cout)
-        return plan.th, plan.tw
-    best = None
-    for th in range(1, min(ho, TILE_PIX) + 1):
-        for tw in range(1, min(wo, TILE_PIX // th) + 1):
-            if _stem_smem_bytes(th, tw, cout) > SMEM_LIMIT:
-                continue
-            window = _round4((th + 2) * (tw + 2))
-            tiles = -(-ho // th) * -(-wo // tw)
-            key = (tiles * (window * 27 + TILE_PIX * (cout + 9)), -th * tw)
-            if best is None or key < best[0]:
-                best = (key, (th, tw))
-    if best is None:
-        raise ValueError(f"no stem tile of {ho}x{wo}, Cout={cout} fits "
-                         f"{SMEM_LIMIT} bytes of shared memory")
-    return best[1]
+    """The output tile (th, tw) for ``kind`` "stem" or "stem_bf16" (the stem
+    kernel: ``plan_stem``'s tile), "s1" or "s2" (the float32 block kernel:
+    ``plan_f32``'s tile) or "s1_bf16", "s2_bf16" (the bf16 block kernel:
+    ``plan_bf16``'s tile). Every kind needs the hidden width ``ch``."""
+    if ch < 1:
+        raise ValueError(f"pick_tile({kind!r}) needs the hidden width ch")
+    dtype = "bf16" if kind.endswith("_bf16") else "f32"
+    if kind.startswith("stem"):
+        plan = plan_stem(dtype, batch, ho, wo, ch, cout)
+    else:
+        plan = (plan_bf16 if dtype == "bf16" else plan_f32)(int(kind[1]), batch, ho, wo, cin,
+                                                            ch, cout)
+    return plan.th, plan.tw
 
 
 def _up(v: int, m: int) -> int:
@@ -212,13 +192,15 @@ def _f32_smem_bytes(stride: int, th: int, tw: int, cin: int, cout: int) -> int:
             + 2 * _f32_stage_bytes(cin, cout))
 
 
-def warp_config(pixels: int, cout: int) -> tuple[int, int, int] | None:
-    """The instantiated (mw, nw, warps) whose project warp grid covers
-    ``pixels`` tile pixels (m16 tiles) and ``cout`` channels (n8 tiles) with
-    the fewest accumulators per thread, then the fewest warps; None if none
-    does. Both block kernels' ``launch`` check the same cover."""
+def warp_config(pixels: int, cout: int,
+                configs: tuple = BF16_CONFIGS) -> tuple[int, int, int] | None:
+    """The instantiated (mw, nw, warps) of ``configs`` (the block kernels'
+    by default; ``STEM_CONFIGS``) whose project warp grid covers ``pixels``
+    tile pixels (m16 tiles) and ``cout`` channels (n8 tiles) with the fewest
+    accumulators per thread, then the fewest warps; None if none does. The
+    kernels' ``launch`` check the same cover."""
     mt, nt = -(-pixels // 16), -(-cout // 8)
-    fits = [(mw * nw, warps, (mw, nw, warps)) for mw, nw, warps in BF16_CONFIGS
+    fits = [(mw * nw, warps, (mw, nw, warps)) for mw, nw, warps in configs
             if -(-nt // nw) <= warps and warps // -(-nt // nw) * mw >= mt]
     return min(fits)[2] if fits else None
 
@@ -391,6 +373,74 @@ def plan_f32(stride: int, batch: int, ho: int, wo: int, cin: int, ch: int,
     return _best_plan("f32", stride, batch, ho, wo, cin, ch, cout)
 
 
+# ---------------------------------------------------------- the stem plan
+
+def _stem_smem_bytes(dtype: str, th: int, tw: int, cout: int) -> int:
+    """csrc/fused_stem.cu:stem_smem_bytes: the input window (2 * th + 5 rows
+    of the window's 6 * tw + 15 values, from an aligned start up to one
+    16-byte unit before them), the float32 hidden chunk over the (th + 2) x
+    (tw + 2) hidden window (rows of 36 floats), the tile's depthwise output
+    (rows of 36 floats or 40 bf16), the chunk's stem weights (32 rows of 36
+    tf32 hi/lo pairs, or of 40 bf16), its project weights and taps in x's
+    type and its biases in float32."""
+    if dtype == "f32":
+        elem, vec, ds, ws = 4, 4, STEM_CHUNK + 4, 8 * (STEM_CHUNK + 4)
+    else:
+        elem, vec, ds, ws = 2, 8, STEM_CHUNK + 8, 2 * (STEM_CHUNK + 8)
+    ld = _up(6 * tw + 14 + vec, vec)
+    return (elem * ((2 * th + 5) * ld + _up(th * tw, 16) * ds + STEM_CHUNK * _odd_stride(cout)
+                    + 9 * STEM_CHUNK)
+            + 32 * ws + 4 * ((th + 2) * (tw + 2) * (STEM_CHUNK + 4) + 2 * STEM_CHUNK))
+
+
+# The stem's cost model, in SM cycles, unfitted: a block pays a fixed cost
+# (the window's load, the output's store) and per hidden chunk the stem over
+# its hidden window's m16 tiles (per dtype: three TF32 passes over four k8
+# steps, or two k16 steps), the depthwise over its pixels and the project
+# over its m16 x n8 tiles. Blocks resident on one SM run side by side (the
+# block kernels' fit), so a wave is the resident blocks of all SMs.
+_STEM_BLOCK = 6000
+_STEM_PER_MTILE = {"f32": 420, "bf16": 70}
+_STEM_PER_PIXEL = 12
+_STEM_PER_PROJECT_TILE = {"f32": 60, "bf16": 8}
+
+
+def stem_plans(dtype: str, batch: int, ho: int, wo: int, ch: int,
+               cout: int) -> list[tuple[float, Plan]]:
+    """Every launch plan of the ``dtype`` ("f32" or "bf16") stem kernel for
+    an output of ho x wo, with its modelled cycles, best first: each tile of
+    at most STEM_MAX_TILE pixels whose shared memory fits a block and that
+    an instantiated warp tiling (``STEM_CONFIGS``) covers."""
+    chunks, n8 = -(-ch // STEM_CHUNK), -(-cout // 8)
+    plans = []
+    for th in range(1, min(ho, STEM_MAX_TILE) + 1):
+        for tw in range(1, min(wo, STEM_MAX_TILE // th) + 1):
+            cfg = warp_config(th * tw, cout, STEM_CONFIGS)
+            smem = _stem_smem_bytes(dtype, th, tw, cout)
+            if cfg is None or smem > SMEM_LIMIT:
+                continue
+            per_sm = blocks_per_sm(*cfg, smem)
+            blocks = batch * -(-ho // th) * -(-wo // tw)
+            waves = -(-blocks // (_NUM_SMS * per_sm))
+            block = _STEM_BLOCK + chunks * (
+                _STEM_PER_MTILE[dtype] * _up((th + 2) * (tw + 2), 16) // 16
+                + _STEM_PER_PIXEL * th * tw
+                + _STEM_PER_PROJECT_TILE[dtype] * _up(th * tw, 16) // 16 * n8)
+            plans.append(((waves * block, -th * tw, th), Plan(th, tw, *cfg, smem)))
+    plans.sort()
+    return [(key[0], plan) for key, plan in plans]
+
+
+@functools.lru_cache(maxsize=1024)
+def plan_stem(dtype: str, batch: int, ho: int, wo: int, ch: int, cout: int) -> Plan:
+    """The stem kernel's launch plan with the least modelled time."""
+    plans = stem_plans(dtype, batch, ho, wo, ch, cout)
+    if not plans:
+        raise ValueError(f"no {dtype} stem tile of {ho}x{wo}, Cout={cout} fits "
+                         f"{SMEM_LIMIT} bytes of shared memory")
+    return plans[0][1]
+
+
 # -------------------------------------------------- the 3xTF32 split, modelled
 
 def tf32_round(t: torch.Tensor) -> torch.Tensor:
@@ -494,6 +544,35 @@ def _launch_block(x, w1, b1, wdw, bdw, w2, b2, residual: bool, stride: int,
     return out
 
 
+def _launch_stem(x, k_stem, b_stem, wdw, bdw, w2, b2, plan: Plan | None = None) -> torch.Tensor:
+    """csrc/fused_stem.cu in x's type, with ``plan`` or ``plan_stem``'s."""
+    b, h, w, _ = x.shape
+    ch, cout = k_stem.shape[-1], w2.shape[-1]
+    bf16 = x.dtype == torch.bfloat16
+    plan = plan or plan_stem("bf16" if bf16 else "f32", b, h // 2, w // 2, ch, cout)
+    out = torch.empty((b, h // 2, w // 2, cout), dtype=x.dtype, device=x.device)
+    b_stem, bdw, b2 = _f32(b_stem), _f32(bdw), _f32(b2)
+    # 16-byte copies: of the input window, its rows (3 * W values) in whole
+    # 16-byte units and an aligned base (bit 0); of the weights, Ch and Cout
+    # in whole units and every weight aligned (bit 1)
+    per_copy = 16 // x.element_size()
+    vec = int(3 * w % per_copy == 0 and x.data_ptr() % 16 == 0)
+    weights = (k_stem, wdw, w2, b_stem, bdw)
+    if ch % per_copy == 0 and cout % per_copy == 0 and all(t.data_ptr() % 16 == 0
+                                                           for t in weights):
+        vec |= 2
+    lib = _build.load()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = lib.myt_fused_stem(x.data_ptr(), k_stem.data_ptr(), b_stem.data_ptr(),
+                                 wdw.data_ptr(), bdw.data_ptr(), w2.data_ptr(), b2.data_ptr(),
+                                 out.data_ptr(), b, h, w, ch, cout, plan.th, plan.tw, plan.mw,
+                                 plan.nw, plan.warps, vec, int(bf16), stream)
+    if err != 0:
+        raise RuntimeError(f"fused_stem kernel launch failed: CUDA error {err}")
+    return out
+
+
 # ---------------------------------------------------------------- wrappers --
 
 def fused_inverted_residual(x: torch.Tensor, w1, b1, wdw, bdw, w2, b2,
@@ -535,7 +614,9 @@ def fused_stem_block0(x: torch.Tensor, k_stem, b_stem, wdw, bdw, w2, b2) -> torc
     """Stem 3x3/s2 (pad 1) + ReLU6, block 0's depthwise + ReLU6 and project,
     BN folded: x (B, H, W, 3), H and W even -> (B, H/2, W/2, Cout).
 
-    A CUDA tensor launches ``csrc/fused_stem.cu`` and adds one to
+    A CUDA tensor launches ``csrc/fused_stem.cu`` (both products on the
+    tensor cores: bf16, or three TF32 passes for float32, float32-accurate
+    whatever ``allow_tf32`` says) with ``plan_stem``'s plan and adds one to
     ``fused_stem_block0.launches``; a CPU tensor runs
     ``stem_block0_reference``. Any other input raises.
     """
@@ -553,19 +634,7 @@ def fused_stem_block0(x: torch.Tensor, k_stem, b_stem, wdw, bdw, w2, b2) -> torc
         raise ValueError(f"{name} holds at most {MAX_COUT} output channels, got {cout}")
     if x.device.type == "cpu":
         return stem_block0_reference(x, k_stem, b_stem, wdw, bdw, w2, b2)
-    b, h, w, _ = x.shape
-    th, tw = pick_tile("stem", h // 2, w // 2, 3, cout)
-    out = torch.empty((b, h // 2, w // 2, cout), dtype=x.dtype, device=x.device)
-    b_stem, bdw, b2 = _f32(b_stem), _f32(bdw), _f32(b2)
-    lib = _build.load()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.myt_fused_stem(x.data_ptr(), k_stem.data_ptr(), b_stem.data_ptr(),
-                                 wdw.data_ptr(), bdw.data_ptr(), w2.data_ptr(), b2.data_ptr(),
-                                 out.data_ptr(), b, h, w, ch, cout, th, tw,
-                                 int(x.dtype == torch.bfloat16), stream)
-    if err != 0:
-        raise RuntimeError(f"fused_stem kernel launch failed: CUDA error {err}")
+    out = _launch_stem(x, k_stem, b_stem, wdw, bdw, w2, b2)
     fused_stem_block0.launches += 1
     return out
 

@@ -28,6 +28,18 @@ from mobilenet_yolo_tpu_torch.ops.device_augment import noised_planar, planned_c
 
 STEPS = 5          # program length, csrc/aug_common.cuh:kSteps
 STATS = 8          # per-slot scratch floats, csrc/aug_common.cuh:kStats
+STATS_PIXELS = 2048  # pixels of a slot one pre-pass item reduces, kStatsPixels
+
+
+def stats_scratch(n_slots: int, size: int, device) -> tuple[torch.Tensor, ...]:
+    """The pre-pass's scratch: (N, STATS) float32 per-slot statistics,
+    (N, STEPS + 1, chunks, 4) float64 partial sums of its items, one chunk
+    per STATS_PIXELS pixels of a slot (aug_common.cuh:stats_chunks), and
+    (STEPS + 1, N + 1) int32 for its plan's work lists."""
+    chunks = -(-size * size // STATS_PIXELS)
+    return (torch.empty((n_slots, STATS), dtype=torch.float32, device=device),
+            torch.empty((n_slots, STEPS + 1, chunks, 4), dtype=torch.float64, device=device),
+            torch.empty((STEPS + 1, n_slots + 1), dtype=torch.int32, device=device))
 
 
 def slot_aug_reference(slots: torch.Tensor, seed: int, noise_gate: torch.Tensor,
@@ -109,14 +121,15 @@ def slot_aug(slots: torch.Tensor, seed: int, noise_gate: torch.Tensor,
     slots = slots.contiguous()
     gate, scale, pc, ops, facs, bits = plan_args(noise_gate, noise_scale, noise_per_channel,
                                                  op_ids, factors, debug_bits)
-    stats = torch.empty((n, STATS), dtype=torch.float32, device=slots.device)
+    stats, partial, work = stats_scratch(n, s, slots.device)
     out = torch.empty((n, 3, s, s), dtype=dtype, device=slots.device)
     with torch.cuda.device(slots.device):
         stream = torch.cuda.current_stream(slots.device).cuda_stream
         err = lib.myt_slot_aug(slots.data_ptr(), n, s, int(seed), gate.data_ptr(),
                                scale.data_ptr(), pc.data_ptr(), ops.data_ptr(), facs.data_ptr(),
                                None if bits is None else bits.data_ptr(), stats.data_ptr(),
-                               out.data_ptr(), int(dtype == torch.bfloat16), stream)
+                               partial.data_ptr(), work.data_ptr(), out.data_ptr(),
+                               int(dtype == torch.bfloat16), stream)
     if err != 0:
         raise RuntimeError(f"slot_aug kernel launch failed: CUDA error {err}")
     slot_aug.launches += 1

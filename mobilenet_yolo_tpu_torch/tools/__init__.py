@@ -4,9 +4,11 @@ Ports of the JAX package's ``tools/``: ``bench_train`` (the training split),
 ``bench_geometry`` (the device-geometry step against the plain step),
 ``probe_stem`` (the cuDNN stem formulations), ``probe_stem_cuda`` (the
 staged stem roofline kernel) and ``probe_aug_kernels`` (the augmentation
-kernels against their plain twins); and ``probe_fused_tiles``, the bf16
-fused-block kernel's launch plans timed beside its cost model. Each runs
-on the card unless given ``--device cpu``, and raises without one.
+kernels against their plain twins; ``--bench`` times their launches
+apart); and ``probe_fused_tiles``, the fused kernels' launch plans (the
+blocks', or with ``--stem`` the stem's) timed beside their cost model.
+Each runs on the card unless given ``--device cpu``, and raises without
+one.
 """
 
 from __future__ import annotations

@@ -13,6 +13,15 @@ ops with noise off, so both sides see the same pixels:
 
     python -m mobilenet_yolo_tpu_torch.tools.probe_aug_kernels [--size 64] \\
         [--slots 4] [--dtype f32|bf16] [--device cuda|cpu]
+
+``--bench`` times both kernels on the card instead, on the
+``train/synthetic.py`` geometry batch (the loader's traffic, drawn from
+seed S) at ``--batch`` (32) and ``--size`` (352): CUDA events per call,
+and each CUDA kernel's device time per call from ``torch.profiler``, the
+statistics pre-pass apart from the pixel pass, as one JSON line.
+
+    python -m mobilenet_yolo_tpu_torch.tools.probe_aug_kernels --bench \\
+        [--batch 32] [--size 352] [--iters 20]
 """
 
 from __future__ import annotations
@@ -27,7 +36,8 @@ from mobilenet_yolo_tpu_torch.kernels.aug_compose import aug_compose
 from mobilenet_yolo_tpu_torch.kernels.slot_aug import slot_aug
 from mobilenet_yolo_tpu_torch.ops.device_augment import geometric_compose, planned_color_jitter
 from mobilenet_yolo_tpu_torch.tools import device_name, tool_device
-from mobilenet_yolo_tpu_torch.train.synthetic import random_program
+from mobilenet_yolo_tpu_torch.train.synthetic import random_geometry_batch, random_program
+from mobilenet_yolo_tpu_torch.utils.profiling import device_ms, kernel_ms_by_name
 
 SLOT_TOL = 2e-2
 COMPOSE_MAX_TOL, COMPOSE_MEAN_TOL = 5.0, 1.0
@@ -87,14 +97,52 @@ def run(size: int = 64, slots: int = 4, dtype: str = "f32", device="cuda") -> di
     return result
 
 
+NOISE_SEED = 1234
+
+
+def bench(batch: int = 32, size: int = 352, iters: int = 20) -> dict:
+    """``aug_compose`` on the geometry batch of seed ``size``, and
+    ``slot_aug`` on its B * 4 slots: ms per call (CUDA events) and each
+    kernel's device ms per call (``kernel_ms_by_name``)."""
+    device = tool_device("cuda")
+    g = {k: torch.from_numpy(v).to(device)
+         for k, v in random_geometry_batch(np.random.default_rng(size), batch, size).items()}
+    n = batch * g["slots"].shape[1]
+    per_slot = [g[k].reshape(n, *g[k].shape[2:]) for k in
+                ("noise_gate", "noise_scale", "noise_per_channel", "jitter_op", "jitter_factor")]
+    calls = {
+        "aug_compose": lambda: aug_compose(
+            g["slots"], NOISE_SEED, *(g[k] for k in (
+                "noise_gate", "noise_scale", "noise_per_channel", "jitter_op", "jitter_factor",
+                "src_rect", "dst_rect", "fill_rect", "fill_color", "fill_from_mean", "flip",
+                "active")), (size, size)),
+        "slot_aug": lambda: slot_aug(g["slots"].reshape(n, size, size, 3), NOISE_SEED, *per_slot),
+    }
+    ops = g["jitter_op"][g["active"]]
+    result = {"device": device_name(device), "batch": batch, "size": size,
+              "active_slots": int(g["active"].sum()),
+              "contrast_steps": int((ops == 1).sum()),
+              "mean_fills": int((g["fill_from_mean"] & g["active"]).sum())}
+    for name, fn in calls.items():
+        result[name] = {"ms": device_ms(fn, device=device, iters=iters),
+                        "kernels_ms": kernel_ms_by_name(fn, iters)}
+    return result
+
+
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--size", type=int, default=64)
+    ap.add_argument("--size", type=int, default=None, help="64 for the check, 352 for --bench")
     ap.add_argument("--slots", type=int, default=4)
     ap.add_argument("--dtype", choices=["f32", "bf16"], default="f32")
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--bench", action="store_true", help="time both kernels on the card")
+    ap.add_argument("--batch", type=int, default=32)
+    ap.add_argument("--iters", type=int, default=20)
     args = ap.parse_args(argv)
-    result = run(args.size, args.slots, args.dtype, args.device)
+    if args.bench:
+        result = bench(args.batch, args.size or 352, args.iters)
+    else:
+        result = run(args.size or 64, args.slots, args.dtype, args.device)
     print(json.dumps(result), flush=True)
     return result
 

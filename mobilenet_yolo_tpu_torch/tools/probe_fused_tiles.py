@@ -15,6 +15,10 @@ the model's constants are held to.
     python -m mobilenet_yolo_tpu_torch.tools.probe_fused_tiles [--dtype bf16|f32] \\
         [--batch 128] [--size 352] [--top 3] [--iters 10] [--device cuda|cpu] [--json]
 
+``--stem`` times the stem kernel (``csrc/fused_stem.cu``) the same way at
+the stem's shape: ``plan_stem``'s plan and the next ``--top`` plans of its
+model with other tiles.
+
 On ``--device cpu`` the wrapper runs its twin (CPU tensors never reach a
 kernel), so a CPU run checks the tool's plumbing, not the kernel.
 
@@ -38,7 +42,7 @@ from mobilenet_yolo_tpu_torch.config import VOC_CONFIG
 from mobilenet_yolo_tpu_torch.kernels import fused_block as fb
 from mobilenet_yolo_tpu_torch.models import build_model
 from mobilenet_yolo_tpu_torch.tools import device_name, tool_device
-from mobilenet_yolo_tpu_torch.utils.profiling import device_ms
+from mobilenet_yolo_tpu_torch.utils.profiling import device_ms, kernel_ms_by_name
 
 
 def block_shapes(backbone, batch: int, size: int) -> list[tuple]:
@@ -95,18 +99,24 @@ def kernel_ms(fn, iters: int) -> float | None:
     """Device time per call of ``fn``: the CUDA kernels that torch.profiler
     records over ``iters`` calls, without the host's gaps between them;
     None if the profiler recorded no kernel."""
-    fn()
-    torch.cuda.synchronize()
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    total = sum(e.device_time_total for e in prof.key_averages()
-                if e.device_type == torch.autograd.DeviceType.CUDA)
-    return total / iters / 1e3 if total > 0 else None
+    by_name = kernel_ms_by_name(fn, iters)
+    return sum(by_name.values()) if by_name else None
 
 
 DTYPES = {"bf16": (torch.bfloat16, fb.BF16_REL_TOL), "f32": (torch.float32, fb.F32_REL_TOL)}
+
+
+def _timed_plan(what: str, plan: fb.Plan, cost: float, tiles: int, run_plan, want, tol: float,
+                device, iters: int) -> dict:
+    """One plan's record: its error against the twin's ``want`` (raises past
+    ``tol``), event and profiler times, beside its modelled cycles."""
+    got = run_plan()
+    err = float((got.float() - want.float()).abs().max()) / float(want.float().abs().max())
+    if not err <= tol:
+        raise RuntimeError(f"{what} plan {plan}: rel err {err} > {tol}")
+    return {"plan": plan._asdict(), "tiles": tiles, "model_cycles": cost, "rel_err": err,
+            "ms": device_ms(run_plan, device=device, iters=iters),
+            "kernel_ms": kernel_ms(run_plan, iters) if device.type == "cuda" else None}
 
 
 def run(batch: int = 128, size: int = 352, top: int = 3, iters: int = 10,
@@ -125,7 +135,6 @@ def run(batch: int = 128, size: int = 352, top: int = 3, iters: int = 10,
         args = block_args(gen, x_shape, ch, cout, torch_dtype, device)
         twin = lambda: fb.inverted_residual_reference(*args, residual=residual, stride=stride)
         want = twin()
-        scale = float(want.float().abs().max())
         ho, wo = x_shape[1] // stride, x_shape[2] // stride
         plans = []
         for cost, plan in candidates(dtype, stride, batch, ho, wo, x_shape[3], ch, cout, top):
@@ -133,15 +142,9 @@ def run(batch: int = 128, size: int = 352, top: int = 3, iters: int = 10,
                 run_plan = lambda: fb._launch_block(*args, residual, stride, plan=plan)
             else:
                 run_plan = twin
-            got = run_plan()
-            err = float((got.float() - want.float()).abs().max()) / scale
-            if not err <= tol:
-                raise RuntimeError(f"{blocks} {dtype} plan {plan}: rel err {err} > {tol}")
-            plans.append({"plan": plan._asdict(), "tiles": -(-ho // plan.th) * -(-wo // plan.tw),
-                          "model_cycles": cost, "rel_err": err,
-                          "ms": device_ms(run_plan, device=device, iters=iters),
-                          "kernel_ms": (kernel_ms(run_plan, iters) if device.type == "cuda"
-                                        else None)})
+            plans.append(_timed_plan(f"{blocks} {dtype}", plan, cost,
+                                     -(-ho // plan.th) * -(-wo // plan.tw), run_plan, want, tol,
+                                     device, iters))
         shapes.append({"blocks": blocks, "stride": stride, "x": list(x_shape), "hidden": ch,
                        "cout": cout, "twin_ms": device_ms(twin, device=device, iters=iters),
                        "twin_kernel_ms": kernel_ms(twin, iters) if device.type == "cuda" else None,
@@ -149,6 +152,41 @@ def run(batch: int = 128, size: int = 352, top: int = 3, iters: int = 10,
         del args, want
     return {"device": device_name(device), "dtype": dtype, "batch": batch, "size": size,
             "shapes": shapes}
+
+
+def run_stem(batch: int = 128, size: int = 352, top: int = 3, iters: int = 10,
+             device="cuda", dtype: str = "bf16") -> dict:
+    """The stem kernel under ``plan_stem``'s plan and the model's next
+    ``top`` plans (each another tile), in ``run``'s format."""
+    device = tool_device(device)
+    torch_dtype, tol = DTYPES[dtype]
+    if device.type == "cuda":
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+    backbone = build_model(VOC_CONFIG, device=device,
+                           generator=torch.Generator().manual_seed(0)).backbone
+    blocks, _, x_shape, ch, cout, _ = block_shapes(backbone, batch, size)[0]
+    gen = torch.Generator(device=device).manual_seed(5)
+    args = block_args(gen, x_shape, ch, cout, torch_dtype, device)
+    args[1] = torch.randn((3, 3, 3, ch), generator=gen, device=device).to(torch_dtype) / 27 ** 0.5
+    twin = lambda: fb.stem_block0_reference(*args)
+    want = twin()
+    ho, wo = x_shape[1] // 2, x_shape[2] // 2
+    plans, tiles = [], set()
+    for cost, plan in fb.stem_plans(dtype, batch, ho, wo, ch, cout):
+        if (plan.th, plan.tw) in tiles or len(plans) > top:
+            continue
+        tiles.add((plan.th, plan.tw))
+        run_plan = (lambda: fb._launch_stem(*args, plan=plan)) if device.type == "cuda" else twin
+        plans.append(_timed_plan(f"stem {dtype}", plan, cost,
+                                 -(-ho // plan.th) * -(-wo // plan.tw), run_plan, want, tol,
+                                 device, iters))
+    shape = {"blocks": blocks, "stride": 2, "x": list(x_shape), "hidden": ch, "cout": cout,
+             "twin_ms": device_ms(twin, device=device, iters=iters),
+             "twin_kernel_ms": kernel_ms(twin, iters) if device.type == "cuda" else None,
+             "plans": plans}
+    return {"device": device_name(device), "dtype": dtype, "batch": batch, "size": size,
+            "shapes": [shape]}
 
 
 SM_CLOCK_HZ = 1.98e9  # the H100 SXM boost clock: the cost model's cycle
@@ -199,6 +237,7 @@ def main(argv=None) -> dict:
     ap.add_argument("--iters", type=int, default=10)
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--json", action="store_true", help="print one JSON object")
+    ap.add_argument("--stem", action="store_true", help="the stem kernel's plans instead")
     ap.add_argument("--fit", nargs="+", metavar="SWEEP_JSON",
                     help="fit the cost model to saved sweeps instead (no device)")
     args = ap.parse_args(argv)
@@ -210,11 +249,13 @@ def main(argv=None) -> dict:
         result = fit(sweeps)
         print(json.dumps(result))
         return result
-    result = run(args.batch, args.size, args.top, args.iters, args.device, args.dtype)
+    result = (run_stem if args.stem else run)(args.batch, args.size, args.top, args.iters,
+                                              args.device, args.dtype)
     if args.json:
         print(json.dumps(result))
     else:
-        print(f"{result['device']}: {result['dtype']} block kernel plans, b{result['batch']} "
+        kind = "stem" if args.stem else "block"
+        print(f"{result['device']}: {result['dtype']} {kind} kernel plans, b{result['batch']} "
               f"{result['size']}x{result['size']}")
         for s in result["shapes"]:
             print(f"{s['blocks']} s{s['stride']} x{tuple(s['x'])} ch{s['hidden']} "

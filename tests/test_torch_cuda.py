@@ -24,6 +24,7 @@ from mobilenet_yolo_tpu_torch.kernels.nms_suppress import suppress, suppress_ref
 from mobilenet_yolo_tpu_torch.models import build_model
 from mobilenet_yolo_tpu_torch.models.bn_fold import fold_batchnorm
 from mobilenet_yolo_tpu_torch.kernels.slot_aug import slot_aug, slot_aug_reference
+from mobilenet_yolo_tpu_torch.ops.device_augment import geometric_compose, planned_color_jitter
 from mobilenet_yolo_tpu_torch.ops.nms import batched_nms
 from mobilenet_yolo_tpu_torch.train.synthetic import random_geometry_batch
 
@@ -147,10 +148,10 @@ def _aug_batch(seed, b, s):
     return {k: torch.from_numpy(v) for k, v in batch.items()}
 
 
-def _slot_args(g, device):
+def _slot_args(g, device, seed=7):
     n = g["slots"].shape[0] * g["slots"].shape[1]
     s = g["slots"].shape[2]
-    return (g["slots"].reshape(n, s, s, 3).to(device), 7,
+    return (g["slots"].reshape(n, s, s, 3).to(device), seed,
             *(g[k].reshape(n, *g[k].shape[2:]).to(device)
               for k in ("noise_gate", "noise_scale", "noise_per_channel", "jitter_op",
                         "jitter_factor")))
@@ -252,6 +253,70 @@ def test_aug_compose_kernel_inactive_tiles_and_debug_bits(cuda):
     _assert_aug_close(got, aug_compose_reference(*args, (48, 40), debug_bits=bits.to(cuda)))
 
 
+def _prepass_batch(b, s):
+    """Programs with 0, 1 and 5 contrast steps (and contrast between other
+    ops), fills from the mean and constant, flipped and inactive tiles,
+    B * 3 slots."""
+    g = _aug_batch(b + s, b, s)
+    g = {k: v[:, :3] if v.dim() > 1 and v.shape[1] == 4 else v for k, v in g.items()}
+    programs = [([-1] * 5, [1.0] * 5), ([1, -1, -1, -1, -1], [1.4, 1, 1, 1, 1]),
+                ([1, 1, 1, 1, 1], [1.3, 0.7, 1.2, 0.8, 1.5]),
+                ([0, 1, 3, 1, 4], [1.1, 0.6, -0.05, 1.3, 0.8]), ([2, 4, 1, 0, 3], [0.5, 1.2, 1.5, 0.9, 0.1])]
+    n = b * 3
+    ops = torch.tensor([programs[i % len(programs)][0] for i in range(n)], dtype=torch.int32)
+    facs = torch.tensor([programs[i % len(programs)][1] for i in range(n)])
+    g["jitter_op"], g["jitter_factor"] = ops.reshape(b, 3, 5), facs.reshape(b, 3, 5)
+    idx = torch.arange(n).reshape(b, 3)
+    g["active"] = idx % 4 != 3
+    g["fill_from_mean"] = idx % 2 == 0
+    g["flip"] = idx % 3 == 1
+    g["fill_rect"] = torch.tensor([0.0, 0.0, 1.0, 1.0]).repeat(b, 3, 1)
+    g["src_rect"] = torch.tensor([0.1, 0.2, 0.8, 0.9]).repeat(b, 3, 1)
+    g["dst_rect"] = torch.tensor([[0.0, 0.0, 0.6, 0.6], [0.4, 0.0, 1.0, 0.5],
+                                  [0.2, 0.5, 1.0, 1.0]]).repeat(b, 1, 1)
+    return g
+
+
+def _in_order_slots(slots, seed, gate, scale, per_channel, ops, facs):
+    """``slot_aug_reference`` (float32) for any program: the twin's noise,
+    then each step through the twin as a program of its own. The twin runs
+    a program as one pass per phase around the hue step, which is the
+    program in order when each op appears at most once (the host planner's
+    contract); one step a call is the program in order for any program."""
+    none = torch.full_like(ops, -1)
+    x = slot_aug_reference(slots, seed, gate, scale, per_channel, none, torch.ones_like(facs))
+    for t in range(ops.shape[1]):
+        step_ops, step_facs = none.clone(), torch.ones_like(facs)
+        step_ops[:, 0], step_facs[:, 0] = ops[:, t], facs[:, t]
+        x = planned_color_jitter(x.permute(0, 2, 3, 1), step_ops, step_facs).permute(0, 3, 1, 2)
+    return x.contiguous()
+
+
+@pytest.mark.parametrize("b,s", [(3, 64), (5, 352)])
+def test_aug_prepass_programs_and_repeats(cuda, b, s):
+    """The statistics pre-pass that both augmentation kernels run, spread
+    over the card: programs with 0, 1, 2 and 5 contrast steps (the last two
+    outside the host planner's contract, so the twin runs them a step at a
+    time: ``_in_order_slots``), fill from the mean on and off, flipped and
+    inactive slots, an odd number of slots (B * 3, and B * 3 - 2 for
+    ``slot_aug``). Each kernel matches its twin, and two runs give the same
+    bits (no floating-point atomics)."""
+    g = _prepass_batch(b, s)
+    args = _compose_args(g, cuda)
+    runs = [aug_compose(*args, (s, s)) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert torch.equal(runs[0], runs[1])
+    planar = _in_order_slots(*_slot_args(g, cuda, seed=args[1]))
+    want = geometric_compose(planar.reshape(b, 3, 3, s, s), *args[7:10], args[10],
+                             *(a.bool() for a in args[11:14]), (s, s), planar=True)
+    _assert_aug_close(runs[0], want.to(torch.bfloat16))
+    sargs = [a[:b * 3 - 2] if torch.is_tensor(a) else a for a in _slot_args(g, cuda)]
+    runs = [slot_aug(*sargs, dtype=torch.float32) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert torch.equal(runs[0], runs[1])
+    _assert_aug_close(runs[0], _in_order_slots(*sargs))
+
+
 @pytest.mark.parametrize("fused_aug", [None, True, "split", False])
 def test_geometry_step_runs_each_mode(cuda, fused_aug):
     """One width-0.35 geometry step per mode on the card: the loss is
@@ -293,6 +358,10 @@ def test_geometry_step_runs_each_mode(cuda, fused_aug):
 # few roundings. The stem kernel keeps float32 inside and rounds once.
 FUSED_F32_REL_TOL = 1e-4
 FUSED_BF16_REL_TOL = fb.BF16_REL_TOL
+# the float32 kernels against the float64 twin, relative to the largest
+# output: float32's own rounding (a few 1e-7; one TF32 pass would sit at
+# 2-5e-4)
+FUSED_F64_REL_TOL = 1e-5
 
 
 def _fused_args(seed, b, h, w, cin, ch, cout, dtype, device, stem=False):
@@ -426,6 +495,58 @@ def test_fused_stem_kernel_matches_twin(cuda, shape, dtype):
     want = fb.stem_block0_reference(*args)
     assert got.shape == want.shape
     _assert_fused_close(got, want, dtype)
+
+
+@pytest.mark.parametrize("allow_tf32", [False, True])
+@pytest.mark.parametrize("shape", [(2, 32, 40, 3, 32, 16), (2, 64, 64, 3, 40, 70),
+                                   (4, 352, 352, 3, 32, 16)])
+def test_f32_stem_is_float32_accurate(cuda, shape, allow_tf32, monkeypatch):
+    """The float32 stem kernel's three TF32 passes (stem and project)
+    against the float64 twin, within FUSED_F64_REL_TOL of the largest
+    output whatever PyTorch's TF32 flags say."""
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", allow_tf32)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", allow_tf32)
+    args = _fused_args(sum(shape), *shape, torch.float32, cuda, stem=True)
+    got = fb.fused_stem_block0(*args)
+    want = fb.stem_block0_reference(*[a.double() for a in args])
+    err = float((got.double() - want).abs().max()) / float(want.abs().max())
+    assert err <= FUSED_F64_REL_TOL, err
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,tile", [
+    ((2, 30, 22, 3, 13, 6), (15, 11)),    # the whole 15x11 output in one tile
+    ((2, 30, 22, 3, 13, 6), (8, 8)),      # ragged tiles both ways
+    ((2, 30, 22, 3, 13, 6), (3, 5)),
+    ((1, 64, 64, 3, 40, 70), (8, 16)),    # two hidden chunks, Cout 70
+    ((2, 40, 48, 3, 32, 16), (16, 16)),   # ragged 16x16 tiles
+    ((1, 16, 128, 3, 32, 40), (2, 64)),   # 128-pixel rows
+])
+def test_stem_kernel_takes_each_plan(cuda, shape, tile, dtype):
+    """The stem kernel under tiles its planner does not pick at these
+    shapes (each with the warp tiling ``warp_config`` gives it) against
+    the twin."""
+    b, h, w, _, ch, cout = shape
+    dt = "bf16" if dtype == torch.bfloat16 else "f32"
+    plan = fb.Plan(*tile, *fb.warp_config(tile[0] * tile[1], cout, fb.STEM_CONFIGS),
+                   fb._stem_smem_bytes(dt, *tile, cout))
+    args = _fused_args(sum(shape) + tile[1], *shape, dtype, cuda, stem=True)
+    got = fb._launch_stem(*args, plan=plan)
+    torch.cuda.synchronize()
+    _assert_fused_close(got, fb.stem_block0_reference(*args), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_stem_kernel_takes_a_misaligned_base(cuda, dtype):
+    """A contiguous x whose storage starts one element off a 16-byte
+    boundary (rows of 3 * 32 values would take 16-byte copies) takes the
+    element loads."""
+    args = _fused_args(9, 2, 32, 32, 3, 32, 16, dtype, cuda, stem=True)
+    flat = torch.empty(args[0].numel() + 1, dtype=dtype, device=cuda)
+    args[0] = flat[1:].view(args[0].shape).copy_(args[0])
+    assert args[0].is_contiguous() and args[0].data_ptr() % 16 != 0
+    got = fb.fused_stem_block0(*args)
+    _assert_fused_close(got, fb.stem_block0_reference(*args), dtype)
 
 
 def test_fused_kernel_rejects_mixed_devices(cuda):

@@ -32,6 +32,7 @@ import torch
 
 from mobilenet_yolo_tpu.eval.detector import make_predict_fn as jax_make_predict_fn
 from mobilenet_yolo_tpu.kernels.pallas_fused import (fused_inverted_residual,
+                                                     fused_stem_block0 as pallas_stem_block0,
                                                      fused_inverted_residual_s2,
                                                      xla_inverted_residual, xla_stem_block0)
 from mobilenet_yolo_tpu.models import build_model as jax_build_model
@@ -149,20 +150,55 @@ def test_wrappers_raise(case, error, match):
 
 
 def test_pick_tile_fits_every_block_of_the_served_model():
-    """At 352x352 the stem kernel gets a tile of at most 64 pixels whose
-    shared memory fits a Hopper block (8x8 at 176x176); the block kinds
-    give their kernels' plans' tiles (float32 ``plan_f32``, bf16
+    """At 352x352 the stem kernel gets a 16x16 tile in each dtype, whose
+    shared memory lets two blocks share an SM (``plan_stem``); the block
+    kinds give their kernels' plans' tiles (float32 ``plan_f32``, bf16
     ``plan_bf16``)."""
-    th, tw = fb.pick_tile("stem", 176, 176, 3, 16)
-    assert 1 <= th * tw <= fb.TILE_PIX and th <= 176 and tw <= 176
-    assert fb._stem_smem_bytes(th, tw, 16) <= fb.SMEM_LIMIT
-    assert (th, tw) == (8, 8)
+    for kind, dtype in (("stem", "f32"), ("stem_bf16", "bf16")):
+        th, tw = fb.pick_tile(kind, 176, 176, 3, 16, 32, 128)
+        plan = fb.plan_stem(dtype, 128, 176, 176, 32, 16)
+        assert (th, tw) == (plan.th, plan.tw) == (16, 16)
+        assert plan.smem == fb._stem_smem_bytes(dtype, th, tw, 16) <= fb.SMEM_LIMIT
+        assert fb.blocks_per_sm(plan.mw, plan.nw, plan.warps, plan.smem) == 2
     for stride, ho, cin, ch, cout in SERVED_BLOCKS:
         for kind, planner in ((f"s{stride}", fb.plan_f32), (f"s{stride}_bf16", fb.plan_bf16)):
             plan = planner(stride, 128, ho, ho, cin, ch, cout)
             assert fb.pick_tile(kind, ho, ho, cin, cout, ch, 128) == (plan.th, plan.tw)
-    with pytest.raises(ValueError, match="needs the hidden width"):
-        fb.pick_tile("s1", 11, 11, 160, 320)
+    for kind in ("s1", "stem"):
+        with pytest.raises(ValueError, match="needs the hidden width"):
+            fb.pick_tile(kind, 11, 11, 160, 320)
+
+
+# the stem kernel's shapes: every training bucket at batch 32 and the
+# served 352 at 128 (Ch 32, Cout 16), and the card tests' (H, W, Ch, Cout)
+STEM_SHAPES = ([(32, size, size, 32, 16) for size in (288, 320, 352, 384, 416)]
+               + [(128, 352, 352, 32, 16)]
+               + [(2, h, w, ch, cout) for h, w in ((30, 22), (32, 40), (64, 64))
+                  for ch, cout in ((13, 6), (32, 16), (40, 70))])
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("batch,h,w,ch,cout", STEM_SHAPES)
+def test_stem_plan_fits_every_shape(batch, h, w, ch, cout, dtype):
+    """The stem kernel's plan: a tile of at most 256 pixels within the
+    output whose shared memory fits a Hopper block, and a project warp grid
+    of ``STEM_CONFIGS`` that covers the tile's m16 rows and Cout's n8
+    columns within the accumulator budget; at the served width (Ch 32, Cout
+    16) and every bucket 288-416, a tile of at least 192 pixels (the stem
+    recomputed on its halo at most 1.33x) with two blocks on an SM."""
+    ho, wo = h // 2, w // 2
+    plan = fb.plan_stem(dtype, batch, ho, wo, ch, cout)
+    assert 1 <= plan.th * plan.tw <= fb.STEM_MAX_TILE and plan.th <= ho and plan.tw <= wo
+    assert plan.smem == fb._stem_smem_bytes(dtype, plan.th, plan.tw, cout) <= fb.SMEM_LIMIT
+    assert (plan.mw, plan.nw, plan.warps) in fb.STEM_CONFIGS
+    assert 4 * plan.mw * plan.nw <= fb.BF16_ACC_REGS
+    m_tiles, n_tiles = -(-plan.th * plan.tw // 16), -(-cout // 8)
+    warps_n = -(-n_tiles // plan.nw)
+    assert warps_n <= plan.warps and plan.warps // warps_n * plan.mw >= m_tiles
+    if (ch, cout) == (32, 16) and h >= 288:
+        assert plan.th * plan.tw >= 192
+        assert (plan.th + 2) * (plan.tw + 2) <= 1.33 * plan.th * plan.tw
+        assert fb.blocks_per_sm(plan.mw, plan.nw, plan.warps, plan.smem) == 2
 
 
 # the stride-1 and stride-2 blocks of the VOC backbone at 352x352, batch
@@ -251,18 +287,55 @@ def _block_tf32(args, residual, stride, passes):
     return o + x if residual else o
 
 
+def _stem_tf32(args, passes):
+    """The float32 stem kernel's arithmetic in plain torch: the stem as the
+    kernel's implicit GEMM (the 27 taps of each hidden pixel in (ky, kx, c)
+    order, zero-padded to K = 32, against k_stem as (27, Ch)) and the
+    project, both by ``matmul_tf32x3`` (bias after the sum), the depthwise
+    in float32."""
+    x, k_stem, b_stem, wdw, bdw, w2, b2 = args
+    b, h, w, _ = x.shape
+    ch, ho, wo = k_stem.shape[-1], h // 2, w // 2
+    cols = torch.nn.functional.unfold(x.permute(0, 3, 1, 2), 3, padding=1, stride=2)
+    cols = cols.reshape(b, 3, 9, ho * wo).permute(0, 3, 2, 1).reshape(-1, 27)  # (ky, kx), c
+    cols = torch.nn.functional.pad(cols, (0, 5))
+    kmat = torch.nn.functional.pad(k_stem.reshape(27, ch), (0, 0, 0, 5))
+    hid = (fb.matmul_tf32x3(cols, kmat, passes) + b_stem).clamp(0.0, 6.0)
+    d = torch.nn.functional.conv2d(hid.reshape(b, ho, wo, ch).permute(0, 3, 1, 2),
+                                   wdw.permute(2, 0, 1)[:, None], bdw, padding=1,
+                                   groups=ch).clamp(0.0, 6.0)
+    o = fb.matmul_tf32x3(d.permute(0, 2, 3, 1).reshape(-1, ch), w2, passes) + b2
+    return o.reshape(b, ho, wo, -1)
+
+
 @pytest.mark.parametrize("name,stride,h,cin,ch,cout,residual", [
     ("block16", 1, 11, 160, 960, 320, False),
     ("block13", 2, 22, 96, 576, 160, False),
     ("block2", 1, 11, 24, 144, 24, True),
+    ("stem", None, 32, 3, 32, 16, False),
 ])
 def test_three_tf32_passes_keep_float32_accuracy(name, stride, h, cin, ch, cout, residual):
     """At 121 output pixels and a served block's widths, the kernel's
     3xTF32 arithmetic sits within 5e-6 of the largest output from the
     float64 twin (float32's own rounding), while one TF32 pass misses the
     tolerance the card holds the kernel to against its twin
-    (``F32_REL_TOL``): the reason for three passes."""
+    (``F32_REL_TOL``): the reason for three passes. The stem case (``stride``
+    None: the 27 -> 32 im2col stem product and the 32 -> 16 project at the
+    served widths, 256 output pixels, ``_stem_tf32``) is held the same way
+    (seen: 2.1e-7 with three passes, 4.7e-4 with one)."""
     rng = np.random.default_rng(cin + ch)
+    if stride is None:
+        draws = [((1, h, h, 3), 1.0), ((3, 3, 3, ch), 27 ** -0.5), ((ch,), 0.1),
+                 ((3, 3, ch), 1 / 3), ((ch,), 0.1), ((ch, cout), ch ** -0.5), ((cout,), 0.1)]
+        args = [torch.from_numpy(rng.normal(0, sc, shape).astype(np.float32))
+                for shape, sc in draws]
+        want = fb.stem_block0_reference(*[a.double() for a in args])
+        scale = float(want.abs().max())
+        errs = {passes: float((_stem_tf32(args, passes).double() - want).abs().max()) / scale
+                for passes in (1, 3)}
+        assert errs[3] <= 5e-6, errs
+        assert errs[1] > fb.F32_REL_TOL, errs
+        return
     draws = [((1, h, h, cin), 1.0), ((cin, ch), cin ** -0.5), ((ch,), 0.1), ((3, 3, ch), 1 / 3),
              ((ch,), 0.1), ((ch, cout), ch ** -0.5), ((cout,), 0.1)]
     args = [torch.from_numpy(rng.normal(0, sc, shape).astype(np.float32)) for shape, sc in draws]
@@ -286,19 +359,49 @@ def test_bf16_config_covers_every_tile_up_to_96_pixels():
     assert plan.th <= 5 and plan.tw <= 3
 
 
+def _stem_args():
+    """test_fused_stem_block0_matches_xla's draws (tests/test_pallas_fused.py:64):
+    B, H, W, Ch, Cout = 2, 32, 40, 32, 16."""
+    rng = np.random.default_rng(0)
+    x = (rng.integers(0, 255, (2, 32, 40, 3)).astype(np.float32) / 255.0 - 0.5)
+    args = (rng.normal(0, 0.3, (3, 3, 3, 32)), rng.normal(0, 0.1, (32,)),
+            rng.normal(0, 0.2, (3, 3, 32)), rng.normal(0, 0.1, (32,)),
+            rng.normal(0, 0.2, (32, 16)), rng.normal(0, 0.1, (16,)))
+    return [x] + [a.astype(np.float32) for a in args]
+
+
 @pytest.mark.parametrize("shape,residual,stride", [
     ((2, 16, 24, 24, 96, 24), True, 1),    # test_fused_s1_matches_xla
     ((2, 16, 24, 24, 96, 24), False, 1),
     ((1, 8, 11, 8, 48, 8), True, 1),       # test_fused_s1_unaligned_width
     ((2, 32, 48, 16, 96, 24), False, 2),   # test_fused_s2_matches_xla
     ((1, 44, 44, 8, 48, 16), False, 2),    # test_fused_s2_odd_tiles
+    (None, False, None),                   # test_fused_stem_block0_matches_xla
 ])
 def test_bf16_tolerance_admits_the_pallas_rounding_points(shape, residual, stride):
     """The Pallas kernels in bf16 (interpret mode): float32 hidden tensor and
     depthwise, the depthwise output rounded to bf16, one output rounding,
-    the points the card's bf16 kernel rounds at. Against the bf16 twin they
-    stay within BF16_REL_TOL of the largest output (seen: 0.3-0.5%), and
-    both sit within it of the float32 twin."""
+    the points the card's bf16 kernels round at (the stem's products of
+    bf16 operands summed in float32). Against the bf16 twin they stay
+    within BF16_REL_TOL of the largest output (seen: 0.3-0.5%), and both
+    sit within it of the float32 twin."""
+    if stride is None:
+        args = _stem_args()
+        jargs = [jnp.asarray(a, jnp.bfloat16) if a.ndim > 1 else jnp.asarray(a) for a in args]
+        pallas = pallas_stem_block0(*jargs, interpret=True)
+        assert pallas.dtype == jnp.bfloat16
+        pallas = np.asarray(pallas.astype(jnp.float32))
+        targs = [torch.from_numpy(a).to(torch.bfloat16) if a.ndim > 1 else torch.from_numpy(a)
+                 for a in args]
+        twin = fb.stem_block0_reference(*targs)
+        assert twin.dtype == torch.bfloat16
+        twin = twin.float().numpy()
+        f32 = fb.stem_block0_reference(*map(torch.from_numpy, args)).numpy()
+        scale = np.abs(twin).max()
+        assert np.abs(pallas - twin).max() <= fb.BF16_REL_TOL * scale
+        assert np.abs(pallas - f32).max() <= fb.BF16_REL_TOL * scale
+        assert np.abs(twin - f32).max() <= fb.BF16_REL_TOL * scale
+        return
     args = _block_args(0, *shape)
     jargs = [jnp.asarray(a, jnp.bfloat16) if a.ndim > 1 else jnp.asarray(a) for a in args]
     if stride == 1:

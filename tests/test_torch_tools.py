@@ -187,7 +187,9 @@ def test_probe_tools_run_on_the_cpu_when_asked():
     (probe_stem, ["--batch", "1", "--size", "16"]),
     (probe_stem_cuda, ["--size", "16", "--batch", "1"]),
     (probe_aug_kernels, ["--size", "16"]),
+    (probe_aug_kernels, ["--bench", "--batch", "1", "--size", "16"]),
     (probe_fused_tiles, ["--batch", "1", "--size", "32"]),
+    (probe_fused_tiles, ["--stem", "--batch", "1", "--size", "32"]),
 ])
 def test_tools_raise_without_a_card(tool, argv):
     """Every tool runs on the card by default and refuses the CPU unless
@@ -237,6 +239,21 @@ def test_probe_fused_tiles_takes_the_f32_kernel_on_the_cpu_when_asked(tmp_path):
     assert list(fitted["constants"]) == list(fb.COST_CONSTANTS)
     assert all(c >= 0 for c in fitted["constants"].values())
     assert fitted["readings"] == sum(len(s["plans"]) for s in out["shapes"])
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_probe_fused_tiles_takes_the_stem_on_the_cpu_when_asked(dtype):
+    """``--stem``: the stem's shape alone, led by ``plan_stem``'s pick, then
+    the model's next plans with other tiles, each against the twin (on the
+    CPU the twin itself)."""
+    out = probe_fused_tiles.main(["--stem", "--dtype", dtype, "--device", "cpu", "--batch", "1",
+                                  "--size", "64", "--iters", "1", "--top", "2"])
+    (shape,) = out["shapes"]
+    assert shape["blocks"] == "stem+0" and shape["x"] == [1, 64, 64, 3] and shape["cout"] == 16
+    plans = [p["plan"] for p in shape["plans"]]
+    assert plans[0] == fb.plan_stem(dtype, 1, 32, 32, 32, 16)._asdict() and len(plans) == 3
+    assert len({(p["th"], p["tw"]) for p in plans}) == 3
+    assert all(p["rel_err"] == 0.0 for p in shape["plans"])
 
 
 def test_config_equals_the_voc_yaml():
