@@ -12,7 +12,9 @@ Phases, one output line each (any failure raises and exits non-zero):
               tensor-core kernels (``fused_block_bf16.cu``,
               ``fused_block.cu``, ``fused_stem.cu``).
 3. kernel   — the NMS suppression kernel against its plain twin on the card,
-              bit-equal: random (B=128, K=256), K=60 (64x64 input), chain.
+              bit-equal: random (B=128, K=256), K=60 (64x64 input), chain,
+              and a full random (B=128, K=256) matrix (diagonal and lower
+              triangle set: the kernel reads only the strict upper one).
 4. serve    — the full-width VOC MBv2-YOLO (random weights from a seeded
               ``torch.Generator``) served through ``make_predict_fn``: batch 1
               and batch 128 at 352x352 in float32, uint8 with on-device
@@ -67,13 +69,23 @@ Phases, one output line each (any failure raises and exits non-zero):
 11. timing  — CUDA-event throughput at batch 128 (f32, bf16, u8), unfolded
               and folded, batch-1 latency, the train step per mode and
               dtype, and each kernel's time beside its twin's and its bound
-              (each fused kernel at every block shape, float32 and bf16);
-              the augmentation kernels' launches apart (``torch.profiler``:
-              the statistics pre-pass, the compose or pixel pass) at 352
-              and 416.
+              (each fused kernel at every block shape, float32 and bf16;
+              the NMS scan at B=128 and B=1, K=256); the augmentation
+              kernels' launches apart (``torch.profiler``: the statistics
+              pre-pass, the compose or pixel pass) at 352 and 416, and
+              ``slot_aug``'s per slot class (``probe_aug_kernels --bench
+              --traffic copy|noise|color``).
 
-The line before the last also carries, for the three fused kernels, the
-float32 twins' kernels alone per b128 predict (``library_device_ms``, from
+The line before the last also carries the NMS scan's bound over the whole
+matrix beside the strict triangle's (``whole_matrix_bound_ms``), its time
+at B=1 (``b1_ms``; ``ms`` and ``b1_ms`` are CUDA events per call of the
+wrapper, as for every kernel) and the kernel's own device time from
+``torch.profiler`` on one ``over`` and on a pool larger than the L2
+(``device_ms``, ``cold_device_ms``, ``b1_device_ms``, ``b1_cold_device_ms``),
+``slot_aug``'s pre-pass and pixel pass apart and
+per slot class (``prepass_ms``, ``pixel_pass_ms``, ``class_ms``), and, for
+the three fused kernels, the float32 twins' kernels alone per b128 predict
+(``library_device_ms``, from
 ``torch.profiler``) and the float32 bound on CUDA cores (``fma_bound_ms``;
 ``bound_ms`` is the block kernels' own route, three TF32 passes), their
 bf16 sums per b128 predict (``bf16_ms``, ``bf16_plain_ms``,
@@ -109,7 +121,7 @@ from mobilenet_yolo_tpu_torch.models import build_model
 from mobilenet_yolo_tpu_torch.models.bn_fold import fold_batchnorm
 from mobilenet_yolo_tpu_torch.ops.nms import _suppression_matrix
 from mobilenet_yolo_tpu_torch.tools import (bench_geometry, bench_train, probe_aug_kernels,
-                                            probe_stem, probe_stem_cuda)
+                                            probe_nms, probe_stem, probe_stem_cuda)
 from mobilenet_yolo_tpu_torch.tools.probe_fused_tiles import block_shapes, kernel_ms as profiled_ms
 from mobilenet_yolo_tpu_torch.train import (GEOMETRY_BATCH_KEYS, create_train_state,
                                             make_geometry_train_step, make_train_step,
@@ -276,22 +288,16 @@ def phase_build() -> None:
                 instance = None
 
 
-def random_over(gen: torch.Generator, b: int, k: int, density: float, device):
-    over = (torch.rand((b, k, k), generator=gen, device=device) < density).float()
-    over = over.triu(1).contiguous()  # strictly-later, as batched_nms builds it
-    valid = (torch.rand((b, k), generator=gen, device=device) < 0.8).float()
-    return over, valid
-
-
 def phase_kernel(device) -> int:
-    gen = torch.Generator(device=device).manual_seed(SEED)
     chain = torch.zeros((1, 128, 128), device=device)
     chain[0, 0, 1] = chain[0, 1, 2] = 1.0
     chain_valid = torch.zeros((1, 128), device=device)
     chain_valid[0, :3] = 1.0
-    cases = {"b128_k256": random_over(gen, BATCH, 256, 0.05, device),
-             "b128_k60": random_over(gen, BATCH, 60, 0.2, device),
-             "chain": (chain, chain_valid)}
+    cases = {"b128_k256": probe_nms.random_over(BATCH, 256, 0.05, device, seed=SEED),
+             "b128_k60": probe_nms.random_over(BATCH, 60, 0.2, device, seed=SEED + 1),
+             "chain": (chain, chain_valid),
+             "b128_k256_full": probe_nms.random_over(BATCH, 256, 0.05, device, full=True,
+                                                     seed=SEED + 2)}
     worst = 0
     for name, (over, valid) in cases.items():
         keep = suppress(over, valid)
@@ -880,16 +886,31 @@ def phase_timing(device, smi: str, state: dict) -> dict:
     report("timing", what="predict_b1_f32_latency", median_ms=f"{statistics.median(lat):.3f}",
            p90_ms=f"{lat[int(0.9 * len(lat))]:.3f}", samples=len(lat), card=f"'{smi}'")
 
-    gen = torch.Generator(device=device).manual_seed(SEED + 2)
-    over, valid = random_over(gen, BATCH, 256, 0.05, device)
+    # the scan at the serving shapes through ``probe_nms``: CUDA events per
+    # call of the wrapper (``ms``, as every other kernel; the wrapper's
+    # Python sets it at this size), the kernel's device time on one
+    # ``over`` (which may sit in L2) and rotating through more than the L2
+    # holds (read from HBM), the twin's, the strict triangle's bound (all
+    # the scan reads) and the whole matrix's
     times = {}
-    kernel_ms = cuda_ms(lambda: suppress(over, valid), iters=100, warmup=5)
-    plain_ms = cuda_ms(lambda: suppress_reference(over, valid), iters=5)
-    times["nms_suppress"] = {"ms": kernel_ms, "plain_ms": plain_ms, "library_ms": None}
-    times["nms_suppress"]["bound_ms"], times["nms_suppress"]["bound_by"] = bound_ms(
-        0, 4 * over.numel() + 4 * valid.numel() + valid.numel())  # over, valid in; keep out
-    report("timing", what="suppress_b128_k256", kernel_ms=f"{kernel_ms:.4f}",
-           plain_ms=f"{plain_ms:.4f}", card=f"'{smi}'")
+    for b in (BATCH, 1):
+        t = probe_nms.bench(b, 256, 0.05, 100)
+        check(t["kernel_ms"] is not None and t["cold_kernel_ms"] is not None,
+              f"torch.profiler saw the scan kernel at B={b}")
+        report("timing", what=f"suppress_b{b}_k256", kernel_ms=f"{t['events_ms']:.4f}",
+               device_ms=f"{t['kernel_ms']:.4f}", cold_device_ms=f"{t['cold_kernel_ms']:.4f}",
+               plain_ms=f"{t['plain_ms']:.4f}", bound_ms=f"{t['bound_ms']:.4f}",
+               whole_matrix_bound_ms=f"{t['whole_matrix_bound_ms']:.4f}", card=f"'{smi}'")
+        if b == BATCH:
+            times["nms_suppress"] = {"ms": t["events_ms"], "device_ms": t["kernel_ms"],
+                                     "cold_device_ms": t["cold_kernel_ms"],
+                                     "plain_ms": t["plain_ms"], "library_ms": None,
+                                     "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+                                     "whole_matrix_bound_ms": t["whole_matrix_bound_ms"]}
+        else:
+            times["nms_suppress"].update(b1_ms=t["events_ms"], b1_device_ms=t["kernel_ms"],
+                                         b1_cold_device_ms=t["cold_kernel_ms"],
+                                         b1_bound_ms=t["bound_ms"])
 
     size = TRAIN_SIZES[0]
     g = state["batches"][size]
@@ -931,9 +952,21 @@ def phase_timing(device, smi: str, state: dict) -> dict:
                **{f"{k}_ms": f"{v:.4f}" for k, v in by_name.items()}, card=f"'{smi}'")
     args = slot_args(g, AUG_SEED)
     by_name = kernel_ms_by_name(lambda: slot_aug(*args), 20)
+    prepass = sum(v for k, v in by_name.items() if k != 'slot_apply_kernel')
     report("timing", what=f"slot_aug_n{TRAIN_BATCH * 4}_s{size}_launches",
-           prepass_ms=f"{sum(v for k, v in by_name.items() if k != 'slot_apply_kernel'):.4f}",
-           **{f"{k}_ms": f"{v:.4f}" for k, v in by_name.items()}, card=f"'{smi}'")
+           prepass_ms=f"{prepass:.4f}", **{f"{k}_ms": f"{v:.4f}" for k, v in by_name.items()},
+           card=f"'{smi}'")
+    times["slot_aug"].update(prepass_ms=prepass, pixel_pass_ms=by_name.get("slot_apply_kernel"),
+                             class_ms={})
+    # the pixel pass per slot class: every slot copy-only, noise only, or a
+    # hue and a gamma step only (the tool's batch at this stage)
+    for traffic in ("copy", "noise", "color"):
+        rec = probe_aug_kernels.bench(TRAIN_BATCH, size, 20, traffic)["slot_aug"]
+        pixel = rec["kernels_ms"].get("slot_apply_kernel")
+        times["slot_aug"]["class_ms"][traffic] = {"ms": rec["ms"], "pixel_pass_ms": pixel}
+        report("timing", what=f"slot_aug_n{TRAIN_BATCH * 4}_s{size}_{traffic}",
+               ms=f"{rec['ms']:.4f}", pixel_pass_ms="none" if pixel is None else f"{pixel:.4f}",
+               card=f"'{smi}'")
 
     # each fused kernel at every block shape of the folded b128 predict,
     # beside its twin (the cuDNN three-conv chain, channels_last, TF32 off:
@@ -1025,7 +1058,11 @@ def main() -> None:
         "name": name, "route": "cuda", "source": source, "replaces": replaces,
         "launches": launches[name], "max_abs_err": max_err[name],
         **{key: times[name][key] for key in ("ms", "plain_ms", "bound_ms", "bound_by",
-                                             "library_ms", "library_device_ms", "fma_bound_ms")
+                                             "library_ms", "library_device_ms", "fma_bound_ms",
+                                             "device_ms", "cold_device_ms",
+                                             "whole_matrix_bound_ms", "b1_ms", "b1_device_ms",
+                                             "b1_cold_device_ms", "b1_bound_ms",
+                                             "prepass_ms", "pixel_pass_ms", "class_ms")
            + bf16_keys if key in times[name]}}
         for name, (source, replaces) in KERNELS.items()]}))
     print(smi, flush=True)

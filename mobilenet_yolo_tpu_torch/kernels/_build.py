@@ -96,16 +96,20 @@ def load() -> ctypes.CDLL:
     points' signatures (a pointer or stream is ``c_void_p``; an undeclared
     one would be cut to 32 bits)."""
     lib = ctypes.CDLL(str(build()))
+    # over, valid, keep, B, K, vec, stream
     lib.myt_nms_suppress.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
                                      ctypes.c_void_p, ctypes.c_int,
-                                     ctypes.c_int, ctypes.c_void_p]
+                                     ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     lib.myt_nms_suppress.restype = ctypes.c_int
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     # slots, N, S, seed, gate, scale, pc, ops, facs, bits, stats, partial,
-    # work, out, out_bf16, stream
+    # work, out, out_bf16, vec, stream
     lib.myt_slot_aug.argtypes = [ptr, i32, i32, i32, ptr, ptr, ptr, ptr, ptr, ptr,
-                                 ptr, ptr, ptr, ptr, i32, ptr]
+                                 ptr, ptr, ptr, ptr, i32, i32, ptr]
     lib.myt_slot_aug.restype = ctypes.c_int
+    # the card tests' hook in slot_aug.cu: out, stream
+    lib.myt_aug_trig_table.argtypes = [ptr, ptr]
+    lib.myt_aug_trig_table.restype = ctypes.c_int
     # slots, B, T, S, seed, gate, scale, pc, ops, facs, bits, src_rect,
     # dst_rect, fill_rect, fill_color, fill_from_mean, flip, active, stats,
     # partial, work, out_h, out_w, out, stream

@@ -17,7 +17,7 @@ import torch
 
 from mobilenet_yolo_tpu_torch.kernels import _build
 
-MAX_K = 1024  # one thread per candidate column in one thread block
+MAX_K = 1024  # an image's K x K bitmasks (128 KB) in one block's shared memory
 
 
 def suppress_reference(over: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
@@ -71,8 +71,10 @@ def suppress(over: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
     keep = torch.empty((b, k), dtype=torch.bool, device=over.device)
     with torch.cuda.device(over.device):
         stream = torch.cuda.current_stream(over.device).cuda_stream
+        # 16-byte loads where every row starts on a 16-byte boundary
+        vec = k % 4 == 0 and over.data_ptr() % 16 == 0
         err = lib.myt_nms_suppress(over.data_ptr(), valid.data_ptr(),
-                                   keep.data_ptr(), b, k, stream)
+                                   keep.data_ptr(), b, k, int(vec), stream)
     if err != 0:
         raise RuntimeError(f"nms_suppress kernel launch failed: CUDA error {err}")
     suppress.launches += 1

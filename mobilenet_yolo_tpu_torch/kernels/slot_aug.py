@@ -123,13 +123,15 @@ def slot_aug(slots: torch.Tensor, seed: int, noise_gate: torch.Tensor,
                                                  op_ids, factors, debug_bits)
     stats, partial, work = stats_scratch(n, s, slots.device)
     out = torch.empty((n, 3, s, s), dtype=dtype, device=slots.device)
+    # four columns a thread where each row's pixels start on a 32-bit word
+    vec = s % 4 == 0 and slots.data_ptr() % 4 == 0
     with torch.cuda.device(slots.device):
         stream = torch.cuda.current_stream(slots.device).cuda_stream
         err = lib.myt_slot_aug(slots.data_ptr(), n, s, int(seed), gate.data_ptr(),
                                scale.data_ptr(), pc.data_ptr(), ops.data_ptr(), facs.data_ptr(),
                                None if bits is None else bits.data_ptr(), stats.data_ptr(),
                                partial.data_ptr(), work.data_ptr(), out.data_ptr(),
-                               int(dtype == torch.bfloat16), stream)
+                               int(dtype == torch.bfloat16), int(vec), stream)
     if err != 0:
         raise RuntimeError(f"slot_aug kernel launch failed: CUDA error {err}")
     slot_aug.launches += 1

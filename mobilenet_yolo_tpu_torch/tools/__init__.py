@@ -5,10 +5,13 @@ Ports of the JAX package's ``tools/``: ``bench_train`` (the training split),
 ``probe_stem`` (the cuDNN stem formulations), ``probe_stem_cuda`` (the
 staged stem roofline kernel) and ``probe_aug_kernels`` (the augmentation
 kernels against their plain twins; ``--bench`` times their launches
-apart); and ``probe_fused_tiles``, the fused kernels' launch plans (the
-blocks', or with ``--stem`` the stem's) timed beside their cost model.
-Each runs on the card unless given ``--device cpu``, and raises without
-one.
+apart, ``--traffic`` per slot class); ``probe_fused_tiles``, the fused
+kernels' launch plans (the blocks', or with ``--stem`` the stem's) timed
+beside their cost model; and ``probe_nms``, the NMS scan's time (events
+per call, its device time with ``over`` in L2 and from HBM) beside both
+bounds, on the card only.
+Each other tool runs on the card unless given ``--device cpu``; without a
+card, every tool raises unless given the CPU.
 """
 
 from __future__ import annotations

@@ -19,9 +19,14 @@ ops with noise off, so both sides see the same pixels:
 seed S) at ``--batch`` (32) and ``--size`` (352): CUDA events per call,
 and each CUDA kernel's device time per call from ``torch.profiler``, the
 statistics pre-pass apart from the pixel pass, as one JSON line.
+``--traffic`` replaces every slot's plan by one class, to show where the
+pixel pass spends its time: ``copy`` (no noise, identity program),
+``noise`` (the loader's noise draws on every slot, identity program) or
+``color`` (no noise, a hue step then a gamma step); ``loader`` (the
+default) keeps the batch's own plans.
 
     python -m mobilenet_yolo_tpu_torch.tools.probe_aug_kernels --bench \\
-        [--batch 32] [--size 352] [--iters 20]
+        [--batch 32] [--size 352] [--iters 20] [--traffic loader|copy|noise|color]
 """
 
 from __future__ import annotations
@@ -36,7 +41,8 @@ from mobilenet_yolo_tpu_torch.kernels.aug_compose import aug_compose
 from mobilenet_yolo_tpu_torch.kernels.slot_aug import slot_aug
 from mobilenet_yolo_tpu_torch.ops.device_augment import geometric_compose, planned_color_jitter
 from mobilenet_yolo_tpu_torch.tools import device_name, tool_device
-from mobilenet_yolo_tpu_torch.train.synthetic import random_geometry_batch, random_program
+from mobilenet_yolo_tpu_torch.train.synthetic import (HUE_MAX, random_geometry_batch,
+                                                      random_program)
 from mobilenet_yolo_tpu_torch.utils.profiling import device_ms, kernel_ms_by_name
 
 SLOT_TOL = 2e-2
@@ -98,15 +104,38 @@ def run(size: int = 64, slots: int = 4, dtype: str = "f32", device="cuda") -> di
 
 
 NOISE_SEED = 1234
+TRAFFIC = ("loader", "copy", "noise", "color")
 
 
-def bench(batch: int = 32, size: int = 352, iters: int = 20) -> dict:
+def slot_class(batch: dict, traffic: str, rng: np.random.Generator) -> dict:
+    """``batch`` with every slot's noise and program replaced by one class
+    of ``TRAFFIC`` (``loader``: unchanged)."""
+    if traffic not in TRAFFIC:
+        raise ValueError(f"traffic is one of {TRAFFIC}, not {traffic!r}")
+    if traffic == "loader":
+        return batch
+    out = dict(batch)
+    shape = batch["noise_gate"].shape
+    out["noise_gate"] = np.full(shape, traffic == "noise")
+    ops = np.full(shape + (5,), -1, np.int32)
+    facs = np.ones(shape + (5,), np.float32)
+    if traffic == "color":
+        ops[..., 0], ops[..., 1] = 3, 4
+        facs[..., 0] = rng.uniform(-HUE_MAX, HUE_MAX, shape)
+        facs[..., 1] = rng.uniform(0.5, 1.5, shape)
+    out["jitter_op"], out["jitter_factor"] = ops, facs
+    return out
+
+
+def bench(batch: int = 32, size: int = 352, iters: int = 20, traffic: str = "loader") -> dict:
     """``aug_compose`` on the geometry batch of seed ``size``, and
-    ``slot_aug`` on its B * 4 slots: ms per call (CUDA events) and each
-    kernel's device ms per call (``kernel_ms_by_name``)."""
+    ``slot_aug`` on its B * 4 slots, with the plans of ``traffic``
+    (``slot_class``): ms per call (CUDA events) and each kernel's device
+    ms per call (``kernel_ms_by_name``)."""
     device = tool_device("cuda")
+    rng = np.random.default_rng(size)
     g = {k: torch.from_numpy(v).to(device)
-         for k, v in random_geometry_batch(np.random.default_rng(size), batch, size).items()}
+         for k, v in slot_class(random_geometry_batch(rng, batch, size), traffic, rng).items()}
     n = batch * g["slots"].shape[1]
     per_slot = [g[k].reshape(n, *g[k].shape[2:]) for k in
                 ("noise_gate", "noise_scale", "noise_per_channel", "jitter_op", "jitter_factor")]
@@ -119,8 +148,9 @@ def bench(batch: int = 32, size: int = 352, iters: int = 20) -> dict:
         "slot_aug": lambda: slot_aug(g["slots"].reshape(n, size, size, 3), NOISE_SEED, *per_slot),
     }
     ops = g["jitter_op"][g["active"]]
-    result = {"device": device_name(device), "batch": batch, "size": size,
+    result = {"device": device_name(device), "batch": batch, "size": size, "traffic": traffic,
               "active_slots": int(g["active"].sum()),
+              "noised_slots": int(g["noise_gate"].sum()),
               "contrast_steps": int((ops == 1).sum()),
               "mean_fills": int((g["fill_from_mean"] & g["active"]).sum())}
     for name, fn in calls.items():
@@ -138,9 +168,11 @@ def main(argv=None) -> dict:
     ap.add_argument("--bench", action="store_true", help="time both kernels on the card")
     ap.add_argument("--batch", type=int, default=32)
     ap.add_argument("--iters", type=int, default=20)
+    ap.add_argument("--traffic", choices=TRAFFIC, default="loader",
+                    help="--bench: every slot's plan from one class")
     args = ap.parse_args(argv)
     if args.bench:
-        result = bench(args.batch, args.size or 352, args.iters)
+        result = bench(args.batch, args.size or 352, args.iters, args.traffic)
     else:
         result = run(args.size or 64, args.slots, args.dtype, args.device)
     print(json.dumps(result), flush=True)

@@ -185,6 +185,42 @@ def test_noise_generator_statistics():
     assert abs(np.corrcoef(z[0].ravel(), z2[0].ravel())[0, 1]) < 0.02
 
 
+@pytest.mark.parametrize("s", [18, 352])
+def test_rows_y_and_y_plus_half_share_one_bit_pair(s):
+    """The noise layout the card kernel's paired rows rely on: row y and
+    row y + S/2 of a plane are r cos and r sin of one Box-Muller draw, so
+    z_y^2 + z_{y+S/2}^2 = -2 log(u1) and atan2(z_{y+S/2}, z_y) = 2 pi u2
+    (mod 2 pi), u1 and u2 from word j of the bit field's two streams, in
+    the twin (``gaussians``) and in the Pallas kernel (interpret mode,
+    injected bits). S = 18 has an odd S/2. Word pairs at both ends of the
+    24-bit range are forced in. Tolerances: float32 Box-Muller against the
+    float64 identities, rtol 1e-5 on r^2 and 1e-5 rad on the angle where
+    r > 0 (u1 rounds to 1.0 in float32 at the top word: r = 0); the Pallas
+    output is 128 + 21 z in float32, so its z agrees with the twin's to
+    2e-5."""
+    rng = np.random.default_rng(s)
+    bits = rng.integers(0, 2 ** 32, (2, 1, 3, s // 2, s), dtype=np.uint64).astype(np.uint32)
+    bits[:, 0, 0, 0, :4] = [[0, 0xFFFFFFFF, 0, 0xFFFFFFFF], [0, 0, 0xFFFFFFFF, 0xFFFFFFFF]]
+    z = aug.gaussians(torch.from_numpy(bits.astype(np.int64))).numpy()[0].astype(np.float64)
+    u = ((bits >> 8).astype(np.float32) * np.float32(2.0 ** -24)
+         + np.float32(2.0 ** -25)).astype(np.float64)
+    top, bottom = z[:, : s // 2], z[:, s // 2:]
+    np.testing.assert_allclose(top ** 2 + bottom ** 2, -2.0 * np.log(u[0, 0]), rtol=1e-5,
+                               atol=1e-30)
+    live = top ** 2 + bottom ** 2 > 0
+    turn = np.arctan2(bottom, top) - 2.0 * np.pi * u[1, 0]
+    wrapped = np.abs((turn + np.pi) % (2.0 * np.pi) - np.pi)
+    assert live.mean() > 0.99 and wrapped[live].max() < 1e-5
+
+    scale = 21.0  # 128 + 21 z stays inside [0, 255] for |z| <= 5.9
+    grey = jnp.full((1, 3, s, s), 128, jnp.uint8)
+    out = np.asarray(fused_slot_aug(
+        grey, jnp.int32(0), jnp.asarray([True]), jnp.asarray([scale], jnp.float32),
+        jnp.asarray([True]), jnp.full((1, 5), -1, jnp.int32), jnp.ones((1, 5), jnp.float32),
+        interpret=True, debug_bits=jnp.asarray(bits)))
+    np.testing.assert_allclose((out[0].astype(np.float64) - 128.0) / scale, z, atol=2e-5)
+
+
 # ------------------------------------------------- the kernels' plain twins
 
 

@@ -26,6 +26,7 @@ from mobilenet_yolo_tpu_torch.models.bn_fold import fold_batchnorm
 from mobilenet_yolo_tpu_torch.kernels.slot_aug import slot_aug, slot_aug_reference
 from mobilenet_yolo_tpu_torch.ops.device_augment import geometric_compose, planned_color_jitter
 from mobilenet_yolo_tpu_torch.ops.nms import batched_nms
+from mobilenet_yolo_tpu_torch.tools.probe_nms import random_over as random_device_over
 from mobilenet_yolo_tpu_torch.train.synthetic import random_geometry_batch
 
 pytestmark = pytest.mark.cuda
@@ -75,6 +76,47 @@ def test_kernel_chain_case(cuda):
     valid[0, :3] = 1.0
     keep = suppress(over.to(cuda), valid.to(cuda)).cpu()
     assert keep[0, :3].tolist() == [True, False, True] and not keep[0, 3:].any()
+
+
+@pytest.mark.parametrize("full", [False, True])
+@pytest.mark.parametrize("b", [1, 128])
+@pytest.mark.parametrize("k", [1, 31, 32, 33, 65, 256, 1000, 1024])
+def test_suppress_kernel_matches_twin_at_every_width(cuda, k, b, full):
+    """Bit-equal at every word layout of the bitmask scan: one partial
+    word, one whole word, a word and one column, K % 4 != 0 (the scalar
+    loads), the serving K and MAX_K (128 KB of shared memory); a full
+    matrix shows the scan reads only the strict upper triangle."""
+    over, valid = random_device_over(b, k, min(0.3, 8.0 / k), cuda, full, k + b + full)
+    before = suppress.launches
+    keep = suppress(over, valid)
+    torch.cuda.synchronize()
+    assert suppress.launches == before + 1
+    assert torch.equal(keep, suppress_reference(over, valid))
+
+
+def test_suppress_kernel_chain_crosses_words(cuda):
+    """30 cuts 33, 33 would cut 64, 64 cuts 97: a chain whose links cross
+    the 32-column words of the scan (30 -> 33 within a row's first two
+    words, 33 -> 64 and 64 -> 97 from one chunk to the next)."""
+    over = torch.zeros(1, 256, 256)
+    for i, j in ((30, 33), (33, 64), (64, 97)):
+        over[0, i, j] = 1.0
+    valid = torch.zeros(1, 256)
+    valid[0, [30, 33, 64, 97]] = 1.0
+    keep = suppress(over.to(cuda), valid.to(cuda)).cpu()
+    assert keep[0].nonzero().flatten().tolist() == [30, 64]
+    assert torch.equal(keep, suppress_reference(over, valid))
+
+
+def test_suppress_kernel_takes_a_misaligned_over(cuda):
+    """A contiguous ``over`` whose first element is not 16-byte aligned
+    takes the scalar loads."""
+    over, valid = random_device_over(4, 256, 0.03, cuda, seed=5)
+    store = torch.empty(over.numel() + 1, device=cuda)
+    shifted = store[1:].view(over.shape)
+    shifted.copy_(over)
+    assert shifted.data_ptr() % 16 != 0
+    assert torch.equal(suppress(shifted, valid), suppress_reference(over, valid))
 
 
 def test_kernel_rejects_mixed_devices(cuda):
@@ -176,6 +218,86 @@ def test_slot_aug_kernel_matches_twin(cuda, b, s, dtype):
         _assert_aug_close(got, want)
     else:  # float32 out: only float32 rounding differs
         torch.testing.assert_close(got, want, atol=1e-2, rtol=0)
+
+
+@pytest.mark.parametrize("bits", [False, True])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("s", [18, 34, 352, 416])
+def test_slot_aug_kernel_matches_twin_at_every_size(cuda, s, dtype, bits):
+    """The paired-row pixel pass at both instances: S = 18 and 34 (S % 4
+    == 2, odd S/2: one column a thread) and the buckets 352 and 416 (four
+    columns a thread), both output types, shared-plane and per-channel
+    noise on every active slot, the generator or injected bits."""
+    g = _aug_batch(s + bits, 2, s)
+    g["noise_per_channel"] = g["active"] & (torch.arange(8).reshape(2, 4) % 2 == 0)
+    args = _slot_args(g, cuda)
+    n = args[0].shape[0]
+    debug = None
+    if bits:
+        debug = torch.from_numpy(np.random.default_rng(s).integers(
+            0, 2 ** 32, (2, n, 3, s // 2, s), dtype=np.uint64).astype(np.uint32)
+            .view(np.int32)).to(cuda)
+    got = slot_aug(*args, dtype=dtype, debug_bits=debug)
+    want = slot_aug_reference(*args, dtype=dtype, debug_bits=debug)
+    torch.cuda.synchronize()
+    assert got.shape == (n, 3, s, s) and got.dtype == dtype
+    if dtype == torch.bfloat16:
+        _assert_aug_close(got, want)
+    else:  # float32 out: only float32 rounding differs
+        torch.testing.assert_close(got, want, atol=1e-2, rtol=0)
+
+
+def test_slot_aug_kernel_takes_a_misaligned_base(cuda):
+    """Slots whose first byte is not on a 32-bit word take the one-column
+    instance, and agree with the twin."""
+    args = _slot_args(_aug_batch(3, 2, 64), cuda)
+    store = torch.empty(args[0].numel() + 1, dtype=torch.uint8, device=cuda)
+    shifted = store[1:].view(args[0].shape)
+    shifted.copy_(args[0])
+    assert shifted.data_ptr() % 4 != 0
+    got = slot_aug(shifted, *args[1:], dtype=torch.float32)
+    torch.testing.assert_close(got, slot_aug_reference(*args), atol=1e-2, rtol=0)
+
+
+def test_slot_aug_and_aug_compose_draw_the_same_pixels(cuda):
+    """The slot pass's paired rows and the compose kernel's per-pixel taps
+    (aug_common.cuh:pixel_state) give the same pixels, noise and program:
+    one tile an image pasted onto the whole output, no fill, no flip, so
+    each output pixel is its tap's value, rounded once to bf16 on both
+    sides."""
+    b, s = 3, 64
+    g = _aug_batch(11, b, s)
+    g["active"] = torch.tensor([[True, False, False, False]] * b)
+    g["noise_gate"] = g["active"].clone()
+    g["noise_per_channel"] = torch.tensor([[True, False, False, False], [False] * 4,
+                                           [True, False, False, False]])
+    g["jitter_op"][:, 0] = torch.tensor([[3, 1, 4, -1, -1], [2, 3, 0, -1, -1],
+                                         [4, 3, -1, -1, -1]], dtype=g["jitter_op"].dtype)
+    g["jitter_factor"][:, 0] = torch.tensor([[-0.05, 1.3, 0.7, 1, 1], [1.4, 0.06, 0.8, 1, 1],
+                                             [1.2, -0.02, 1, 1, 1]])
+    whole = torch.tensor([0.0, 0.0, 1.0, 1.0]).repeat(b, 4, 1)
+    g["src_rect"], g["dst_rect"] = whole, whole.clone()
+    g["fill_rect"] = torch.zeros(b, 4, 4)
+    g["fill_from_mean"] = torch.zeros(b, 4, dtype=torch.bool)
+    g["flip"] = torch.zeros(b, 4, dtype=torch.bool)
+    composed = aug_compose(*_compose_args(g, cuda), (s, s))
+    planar = slot_aug(*_slot_args(g, cuda, seed=9)).reshape(b, 4, 3, s, s)[:, 0]
+    assert torch.equal(composed, planar.permute(0, 2, 3, 1))
+
+
+def test_slot_aug_sincosf_matches_cosf_and_sinf_on_every_phase(cuda):
+    """The pixel pass draws both rows of a pair from one ``sincosf``; the
+    per-pixel path (the compose kernel's taps) calls ``cosf`` or ``sinf``.
+    All 2^24 phases 2*pi*u2 that ``bits_to_unit`` can give, bit for bit."""
+    from mobilenet_yolo_tpu_torch.kernels import _build
+
+    out = torch.empty((4, 1 << 24), device=cuda)
+    assert _build.load().myt_aug_trig_table(
+        out.data_ptr(), torch.cuda.current_stream().cuda_stream) == 0
+    torch.cuda.synchronize()
+    assert torch.isfinite(out).all()
+    assert torch.equal(out[0].view(torch.int32), out[2].view(torch.int32))
+    assert torch.equal(out[1].view(torch.int32), out[3].view(torch.int32))
 
 
 def test_slot_aug_kernel_negative_hue_and_debug_bits(cuda):

@@ -30,21 +30,38 @@ def random_over(rng, b, k, density=0.1):
     return over, valid
 
 
-def chain_case(k=128):
-    """a suppresses b, b would suppress c: c survives because b is dead."""
+def chain_case(k=128, links=((0, 1), (1, 2))):
+    """a suppresses b, b would suppress c: c survives because b is dead.
+    Each link (i, j) sets over[i, j]; every candidate on a link is valid."""
     over = np.zeros((1, k, k), np.float32)
-    over[0, 0, 1] = over[0, 1, 2] = 1.0
     valid = np.zeros((1, k), np.float32)
-    valid[0, :3] = 1.0
+    for i, j in links:
+        over[0, i, j] = 1.0
+        valid[0, [i, j]] = 1.0
     return over, valid
 
 
-@pytest.mark.parametrize("case", ["random_k128", "random_k60", "chain"])
+# 30 cuts 33 (a row's first two 32-column words), 33 would cut 64 and 64
+# cuts 97 (from one 32-row chunk of the card kernel's scan to the next)
+WORD_CHAIN = ((30, 33), (33, 64), (64, 97))
+
+
+@pytest.mark.parametrize("case", ["random_k128", "random_k60", "chain", "random_k31",
+                                  "random_k32", "random_k33", "random_k65", "chain_words",
+                                  "full_k65"])
 def test_suppress_reference_matches_pallas_and_xla_scan(case):
+    """The kernel's word layouts (K below, at and past one 32-column word,
+    and past two), a chain across words, and a full matrix."""
     rng = np.random.default_rng(0)
     over, valid = {"random_k128": lambda: random_over(rng, 2, 128),
                    "random_k60": lambda: random_over(rng, 3, 60, density=0.3),
-                   "chain": chain_case}[case]()
+                   "chain": chain_case,
+                   "random_k31": lambda: random_over(rng, 3, 31, density=0.2),
+                   "random_k32": lambda: random_over(rng, 3, 32, density=0.2),
+                   "random_k33": lambda: random_over(rng, 3, 33, density=0.2),
+                   "random_k65": lambda: random_over(rng, 3, 65, density=0.1),
+                   "chain_words": lambda: chain_case(128, WORD_CHAIN),
+                   "full_k65": lambda: full_over(rng, 3, 65)}[case]()
     got = suppress_reference(torch.from_numpy(over), torch.from_numpy(valid)).numpy()
     pallas = np.asarray(pallas_suppress(jnp.asarray(over), jnp.asarray(valid),
                                         interpret=True))
@@ -53,6 +70,31 @@ def test_suppress_reference_matches_pallas_and_xla_scan(case):
     np.testing.assert_array_equal(got, xla)
     if case == "chain":
         assert got[0, :3].tolist() == [True, False, True] and not got[0, 3:].any()
+    if case == "chain_words":
+        assert np.flatnonzero(got[0]).tolist() == [30, 64]
+
+
+def full_over(rng, b, k, density=0.1):
+    """``over`` with the diagonal and the lower triangle set at random too."""
+    over = (rng.random((b, k, k)) < density).astype(np.float32)
+    over[:, np.arange(k), np.arange(k)] = 1.0
+    return over, (rng.random((b, k)) < 0.8).astype(np.float32)
+
+
+@pytest.mark.parametrize("k", [31, 65, 128])
+def test_lower_triangle_never_matters(k):
+    """On the reference itself: the Pallas scan gives the same keep for a
+    full matrix (diagonal and lower triangle set) as for its strict upper
+    triangle, the only part the card kernel reads; the twin agrees."""
+    over, valid = full_over(np.random.default_rng(k), 3, k)
+    upper = over * np.triu(np.ones((k, k), np.float32), 1)
+    full_keep = np.asarray(pallas_suppress(jnp.asarray(over), jnp.asarray(valid), interpret=True))
+    upper_keep = np.asarray(pallas_suppress(jnp.asarray(upper), jnp.asarray(valid),
+                                            interpret=True))
+    np.testing.assert_array_equal(full_keep, upper_keep)
+    np.testing.assert_array_equal(
+        suppress_reference(torch.from_numpy(over), torch.from_numpy(valid)).numpy(), full_keep)
+    assert 0 < full_keep.sum() < (valid > 0.5).sum()  # the scan did suppress
 
 
 def test_suppress_on_cpu_is_the_reference_and_counts_no_launch():

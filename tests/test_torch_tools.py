@@ -28,8 +28,10 @@ from mobilenet_yolo_tpu_torch.kernels.stem_probe import COUT, stem_probe, stem_p
 from mobilenet_yolo_tpu_torch.models.mbv2_yolo import MBv2YOLO
 from mobilenet_yolo_tpu_torch.kernels import fused_block as fb
 from mobilenet_yolo_tpu_torch.tools import (bench_geometry, bench_train, probe_aug_kernels,
-                                            probe_fused_tiles, probe_stem, probe_stem_cuda)
+                                            probe_fused_tiles, probe_nms, probe_stem,
+                                            probe_stem_cuda)
 from mobilenet_yolo_tpu_torch.train import make_loss_fn
+from mobilenet_yolo_tpu_torch.train.synthetic import random_geometry_batch
 from mobilenet_yolo_tpu_torch.utils.profiling import device_ms
 
 from _torch_parity import SMALL_YOLO_CONFIG, VOC_CONFIG as VOC_YAML, load_yaml
@@ -181,7 +183,51 @@ def test_probe_tools_run_on_the_cpu_when_asked():
     assert aug["aug_compose_max_abs_err"] < probe_aug_kernels.COMPOSE_MAX_TOL
 
 
+@pytest.mark.parametrize("full", [False, True])
+def test_probe_nms_random_over_is_seeded(full):
+    """The scan's seeded inputs, shared by the probe, ``chip_smoke.py`` and
+    the card tests: strictly upper-triangular as ``batched_nms`` builds
+    it, or ``full`` with the diagonal and lower triangle set too."""
+    over, valid = probe_nms.random_over(2, 40, 0.2, "cpu", full=full, seed=3)
+    again, _ = probe_nms.random_over(2, 40, 0.2, "cpu", full=full, seed=3)
+    assert over.shape == (2, 40, 40) and valid.shape == (2, 40) and torch.equal(over, again)
+    assert set(over.unique().tolist()) == {0.0, 1.0} and over.is_contiguous()
+    lower = over.tril()
+    assert lower.any() if full else not lower.any()
+    assert torch.equal(over.triu(1), probe_nms.random_over(2, 40, 0.2, "cpu", seed=3)[0])
+    assert 0 < valid.sum() < valid.numel()
+
+
+@pytest.mark.parametrize("traffic", probe_aug_kernels.TRAFFIC)
+def test_probe_aug_kernels_slot_classes(traffic):
+    """``--traffic``: every slot copy-only (no noise, identity program),
+    noised with an identity program, or a hue then a gamma step with the
+    planner's factor ranges; ``loader`` keeps the batch's own plans."""
+    rng = np.random.default_rng(0)
+    batch = random_geometry_batch(np.random.default_rng(1), 3, 32)
+    out = probe_aug_kernels.slot_class(batch, traffic, rng)
+    if traffic == "loader":
+        assert out is batch
+        return
+    assert out["noise_gate"].all() == (traffic == "noise") and \
+        out["noise_gate"].any() == (traffic == "noise")
+    ops, facs = out["jitter_op"], out["jitter_factor"]
+    assert ops.shape == batch["jitter_op"].shape and ops.dtype == np.int32
+    if traffic == "color":
+        assert (ops[..., 0] == 3).all() and (ops[..., 1] == 4).all() and (ops[..., 2:] == -1).all()
+        assert np.abs(facs[..., 0]).max() <= 18.0 / 255.0
+        assert ((facs[..., 1] >= 0.5) & (facs[..., 1] <= 1.5)).all()
+    else:
+        assert (ops == -1).all() and (facs == 1.0).all()
+    for key in ("slots", "src_rect", "active", "noise_scale"):
+        assert out[key] is batch[key]
+    with pytest.raises(ValueError, match="traffic"):
+        probe_aug_kernels.slot_class(batch, "hue", rng)
+
+
 @pytest.mark.parametrize("tool,argv", [
+    (probe_nms, ["--batch", "1", "--k", "8"]),
+    (probe_nms, []),
     (bench_train, ["--batch-size", "1", "--img-size", "32"]),
     (bench_geometry, ["--batch-size", "1", "--img-size", "32"]),
     (probe_stem, ["--batch", "1", "--size", "16"]),
