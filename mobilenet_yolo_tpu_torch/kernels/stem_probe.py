@@ -18,10 +18,12 @@ three stages, with h = S/2:
   summed in float32, w (9, 3, 32) taps (ky*3+kx, cin, cout) and bias (32,).
 
 Stages a and b broadcast their value over the output row. Every stage
-rounds to bf16 once. ``stem_probe_reference`` is the plain twin (for c,
-the 27 taps summed in the kernel's order, so the two agree bit for bit on
-the card): the CPU path, and the oracle the kernel is held against on the
-card; never a fallback for a CUDA tensor.
+rounds to bf16 once. ``stem_probe_reference`` is the plain twin (for c, a
+rounded float32 product and sum a tap, in (ky, kx, cin) order): the CPU
+path, and the oracle the kernel is held against on the card; never a
+fallback for a CUDA tensor. The kernel sums in other orders (stage c: three
+TF32 passes on the tensor cores, float32-accurate), so the two agree within
+``tools/probe_stem_cuda.py:tolerance``, not bit for bit.
 """
 
 from __future__ import annotations
@@ -32,7 +34,7 @@ from mobilenet_yolo_tpu_torch.kernels import _build
 
 STAGES = ("a", "b", "c")
 COUT = 32          # csrc/stem_probe.cu:kCout
-MAX_SIZE = 1024    # three staged rows of 3S floats fit in 48 KB of shared memory
+MAX_SIZE = 1024    # csrc/stem_probe.cu: a ring of at least three rows of 3S floats fits
 
 
 def _broadcast(v: torch.Tensor, h: int) -> torch.Tensor:

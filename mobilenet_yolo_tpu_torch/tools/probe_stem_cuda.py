@@ -8,9 +8,10 @@ the card's measured ceiling for any stem kernel, beside the bound (bytes
 over HBM's rate). First a small-shape check of the kernel against its twin
 and, for stage c, against ``F.conv2d`` on the same input (the probe's
 oracle, ``probe_stem_pallas.py:148-155``); then, with ``--bench``,
-CUDA-event times beside the bound, the twin's time and, for stage c, the
-time of ``F.conv2d`` + bias + clamp + cast (``library_ms``, channels_last,
-TF32 off).
+CUDA-event times beside the bound (and their ratio, ``share_of_bound``),
+the twin's time and, for stage c, the time of ``F.conv2d`` + bias + clamp
++ cast (``library_ms``, channels_last, TF32 off) and stage c's time over
+stage a's on the same input (``vs_stage_a``).
 
     python -m mobilenet_yolo_tpu_torch.tools.probe_stem_cuda --stage a|b|c \\
         [--size 64] [--batch 8] [--bench] [--iters 20] [--device cuda|cpu]
@@ -103,20 +104,24 @@ def check(stage: str, batch: int, size: int, device) -> dict:
 
 def bench(stage: str, device, iters: int = 20) -> dict:
     """Kernel, twin and (stage c) library times at batch 128, 352x352,
-    beside the bound."""
+    beside the bound: ``share_of_bound`` is the bound over the kernel's
+    time. Stage c also times stage a on the same input, which streams the
+    same bytes: ``vs_stage_a`` is stage c's time over stage a's."""
     batch, size = BENCH_BATCH, BENCH_SIZE
     args = stage_inputs(stage, batch, size, device, seed=1)
     x, extra = args[0], args[1:]
     flops, nbytes = probe_work(stage, batch, size)
     bound, bound_by = bound_ms(flops, nbytes)
-    result = {"stage": stage, "batch": batch, "size": size,
-              "ms": device_ms(lambda: stem_probe(x, stage, *extra), device=device, iters=iters),
+    ms = device_ms(lambda: stem_probe(x, stage, *extra), device=device, iters=iters)
+    result = {"stage": stage, "batch": batch, "size": size, "ms": ms,
               "plain_ms": device_ms(lambda: stem_probe_reference(x, stage, *extra),
                                     device=device, iters=max(iters // 4, 1)),
-              "bound_ms": bound, "bound_by": bound_by, "library_ms": None,
-              "gflop": flops / 1e9, "mb": nbytes / 1e6}
+              "bound_ms": bound, "bound_by": bound_by, "share_of_bound": bound / ms,
+              "library_ms": None, "gflop": flops / 1e9, "mb": nbytes / 1e6}
     if stage == "c":
         result["library_ms"] = device_ms(lambda: conv_stem(*args), device=device, iters=iters)
+        result["stage_a_ms"] = device_ms(lambda: stem_probe(x, "a"), device=device, iters=iters)
+        result["vs_stage_a"] = ms / result["stage_a_ms"]
     return result
 
 

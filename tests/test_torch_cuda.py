@@ -714,7 +714,9 @@ def _fused_counts():
 # tolerances: ``probe_stem_cuda.tolerance``. Stages a and b sum thousands of
 # floats in another order than the twin and round once to bf16: a rounding
 # may tip by one bf16 spacing, at most that of the largest output. Stage c
-# sums in the twin's order; held within 2^-8 of the largest output.
+# sums the 27 products in three TF32 passes on the tensor cores, the twin
+# as rounded float32 products: a few float32 ulp apart before the one bf16
+# rounding; held within 2^-8 of the largest output.
 
 @pytest.mark.parametrize("stage", ["a", "b", "c"])
 @pytest.mark.parametrize("b,s", [(2, 16), (3, 18), (4, 352), (2, 34)])
@@ -732,6 +734,78 @@ def test_stem_probe_kernel_matches_twin(cuda, stage, b, s):
     want = stem_probe_reference(x, stage, *wb)
     err = float((got.float() - want.float()).abs().max())
     assert err <= tolerance(stage, want), (err, tolerance(stage, want))
+
+
+def _stem_probe_against_twin(x, stage, wb):
+    from mobilenet_yolo_tpu_torch.kernels.stem_probe import stem_probe, stem_probe_reference
+    from mobilenet_yolo_tpu_torch.tools.probe_stem_cuda import tolerance
+
+    got = stem_probe(x, stage, *wb)
+    torch.cuda.synchronize()
+    want = stem_probe_reference(x, stage, *wb)
+    assert got.shape == want.shape and got.dtype == torch.bfloat16
+    err = float((got.float() - want.float()).abs().max())
+    assert err <= tolerance(stage, want), (err, tolerance(stage, want))
+
+
+@pytest.mark.parametrize("stage", ["a", "b", "c"])
+@pytest.mark.parametrize("s", [64, 66])
+@pytest.mark.parametrize("where", ["row 0", "column 0", "last row", "last column"])
+def test_stem_probe_edges(cuda, stage, s, where):
+    """An input that is zero but on one edge: stage c's zero padding (the
+    row above row 0, the column left of column 0), stage b's wrap (row S-1
+    above row 0, lanes modulo 3S) and the last row and column. S=66 rows
+    take the element copies."""
+    from mobilenet_yolo_tpu_torch.tools.probe_stem_cuda import stage_inputs
+
+    x, *wb = stage_inputs(stage, 2, s, cuda, seed=s)
+    edge = torch.zeros_like(x).reshape(2, s, s, 3)
+    pick = {"row 0": (slice(None), 0), "column 0": (slice(None), slice(None), 0),
+            "last row": (slice(None), s - 1), "last column": (slice(None), slice(None), s - 1)}
+    edge[pick[where]] = x.reshape(2, s, s, 3)[pick[where]]
+    _stem_probe_against_twin(edge.reshape(2, s, 3 * s), stage, wb)
+
+
+@pytest.mark.parametrize("stage", ["b", "c"])
+@pytest.mark.parametrize("b,s", [(300, 16), (7, 130)])
+def test_stem_probe_work_items_span_images(cuda, stage, b, s):
+    """Stages b and c walk work items of 16 output rows of the B*S/2, cut
+    at image boundaries into segments. S=16: 2400 rows of 8 an image, 150
+    items of two images each, more than the SMs (132 on an H100), so a
+    block takes a second item; S=130: 16 does not divide h = 65, so items
+    start mid-image and the last has 7 rows. The ring wraps many times."""
+    from mobilenet_yolo_tpu_torch.tools.probe_stem_cuda import stage_inputs
+
+    x, *wb = stage_inputs(stage, b, s, cuda, seed=b)
+    _stem_probe_against_twin(x, stage, wb)
+
+
+@pytest.mark.parametrize("stage", ["a", "b", "c"])
+@pytest.mark.parametrize("b,s", [(2, 1024), (1, 352), (13, 352)])
+def test_stem_probe_sizes_and_batches(cuda, stage, b, s):
+    """S = MAX_SIZE (a 12 KB row a slot); B=1 (11 work items, a block
+    each); B=13 (143 items: on an H100's 132 SMs the persistent grid's
+    second wave is 11 items, the rest of its blocks idle)."""
+    from mobilenet_yolo_tpu_torch.kernels.stem_probe import MAX_SIZE
+    from mobilenet_yolo_tpu_torch.tools.probe_stem_cuda import stage_inputs
+
+    assert s <= MAX_SIZE
+    x, *wb = stage_inputs(stage, b, s, cuda, seed=s + b)
+    _stem_probe_against_twin(x, stage, wb)
+
+
+@pytest.mark.parametrize("stage", ["a", "b", "c"])
+def test_stem_probe_misaligned_base(cuda, stage):
+    """A contiguous view one float into its storage: no 16-byte bulk
+    copies, the element path."""
+    from mobilenet_yolo_tpu_torch.tools.probe_stem_cuda import stage_inputs
+
+    x, *wb = stage_inputs(stage, 3, 64, cuda, seed=9)
+    store = torch.empty(x.numel() + 1, device=cuda)
+    shifted = store[1:].view_as(x)
+    shifted.copy_(x)
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16 == 4
+    _stem_probe_against_twin(shifted, stage, wb)
 
 
 def test_stem_probe_stage_c_matches_conv2d(cuda):

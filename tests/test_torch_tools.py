@@ -183,6 +183,22 @@ def test_probe_tools_run_on_the_cpu_when_asked():
     assert aug["aug_compose_max_abs_err"] < probe_aug_kernels.COMPOSE_MAX_TOL
 
 
+def test_probe_stem_cuda_bench_reports_its_share_of_the_bound(monkeypatch):
+    """``bench`` beside the bound: ``share_of_bound`` = bound / time, and
+    for stage c ``vs_stage_a`` = c's time over stage a's on the same input
+    (on the CPU the times are the twins' host-clock times, at a small
+    shape)."""
+    monkeypatch.setattr(probe_stem_cuda, "BENCH_BATCH", 1)
+    monkeypatch.setattr(probe_stem_cuda, "BENCH_SIZE", 16)
+    for stage in ("a", "c"):
+        out = probe_stem_cuda.bench(stage, "cpu", iters=1)
+        assert (out["batch"], out["size"]) == (1, 16)
+        assert out["share_of_bound"] == pytest.approx(out["bound_ms"] / out["ms"])
+        assert ("vs_stage_a" in out) == (stage == "c")
+    assert out["vs_stage_a"] == pytest.approx(out["ms"] / out["stage_a_ms"])
+    assert out["library_ms"] > 0
+
+
 @pytest.mark.parametrize("full", [False, True])
 def test_probe_nms_random_over_is_seeded(full):
     """The scan's seeded inputs, shared by the probe, ``chip_smoke.py`` and
