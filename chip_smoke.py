@@ -42,7 +42,9 @@ Phases, one output line each (any failure raises and exits non-zero):
               ``fused_inverted_residual``; all on the tensor cores, float32
               in three TF32 passes) against their cuDNN twins, TF32 off, in
               float32 and bf16, at the batch-128 352x352 shape of every
-              backbone block, an unaligned width and odd output widths; and
+              backbone block of the VOC model and of the served slim50 plan
+              (hidden widths that end the last 48- and 24-channel chunk
+              part-full), an unaligned width and odd output widths; and
               the float32 block kernel (block 16's shape) and stem kernel
               (its b128 352x352 shape) against the float64 twin.
 8. serve_folded — the same VOC model folded (``fold_batchnorm``) and served
@@ -67,13 +69,29 @@ Phases, one output line each (any failure raises and exits non-zero):
               ``bench_geometry --stages --fused on`` at 416,
               ``probe_aug_kernels`` and ``probe_stem``; checks they launched
               the augmentation kernels.
-11. timing  — CUDA-event throughput at batch 128 (f32, bf16, u8), unfolded
-              and folded, batch-1 latency, the train step per mode and
+11. serve_pruned — the served slim50 plan (``configs/voc/slim50.yaml``,
+              hidden widths off every 48- and 24-channel chunk) folded:
+              heads against the unfolded model's (init weights float32 and
+              bf16, calibrated float32), then a b128 request a dtype through
+              ``make_predict_fn``, the fused kernels' launches counted.
+12. eval    — ``evaluate_detection`` on the card against the same run on
+              the CPU, float64, 23 images at batch 8 (a ragged tail), K=512:
+              ``keep`` equal, mAP within 1e-9; the scan's launches counted.
+13. infer   — ``python -m mobilenet_yolo_tpu_torch.cli.infer`` as its own
+              process (random weights): a directory of 5 PNGs at batch 2,
+              then one image; a result file per input.
+14. bench   — ``python -m mobilenet_yolo_tpu_torch.bench`` as its own
+              process in 8 modes (``BENCH_MODES``): one JSON line each, a
+              finite img/s, printed beside the card.
+15. timing  — CUDA-event throughput at batch 128 (f32, bf16, u8), unfolded
+              and folded, batch-1 latency, the bench itself in each of its
+              modes in this process (``bench.main``: ``in_process_bench_*``,
+              beside its own-process number), the train step per mode and
               dtype, and each kernel's time beside its twin's and its bound
               (each fused kernel at every block shape, float32 and bf16;
-              the NMS scan at B=128 and B=1, K=256); the augmentation
-              kernels' launches apart (``torch.profiler``: the statistics
-              pre-pass, the compose or pixel pass) at 352 and 416, and
+              the NMS scan at B=128 and B=1, K=256, and at B=8, K=512); the
+              augmentation kernels' launches apart (``torch.profiler``: the
+              statistics pre-pass, the compose or pixel pass) at 352 and 416, and
               ``slot_aug``'s per slot class (``probe_aug_kernels --bench
               --traffic copy|noise|color``).
 
@@ -83,7 +101,10 @@ at B=1 (``b1_ms``; ``ms`` and ``b1_ms`` are CUDA events per call of the
 wrapper, as for every kernel) and the kernel's own device time from
 ``torch.profiler`` on one ``over`` and on a pool larger than the L2
 (``device_ms``, ``cold_device_ms``, ``b1_device_ms``, ``b1_cold_device_ms``),
-``slot_aug``'s pre-pass and pixel pass apart and
+its times at the evaluator's B=8, K=512 (``k512_b8_*``), its launches on
+the eval and slim50 paths (``eval_launches``, ``slim50_launches``; the
+fused kernels' ``slim50_launches`` too), ``slot_aug``'s pre-pass and pixel
+pass apart and
 per slot class (``prepass_ms``, ``pixel_pass_ms``, ``class_ms``), and, for
 the three fused kernels, the float32 twins' kernels alone per b128 predict
 (``library_device_ms``, from
@@ -95,23 +116,33 @@ from ``torch.profiler``; ``bf16_bound_ms``) and worst bf16 error relative
 to the largest output (``bf16_max_rel_err``).
 
 The line before the last is the per-kernel JSON record; the last line is
-``{"ok": true, "device": {...}}``. Imports nothing of JAX, yaml or PIL.
+``{"ok": true, "device": {...}}``. Imports nothing of JAX; yaml is read
+through the port's ``config.py`` (the slim50 plan, the VOC class names)
+and PIL only to write the infer phase's images. The subprocess phases
+write under ``build/`` (gitignored).
 """
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import functools
+import io
 import json
+import shutil
 import statistics
 import subprocess
+import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
 
-from mobilenet_yolo_tpu_torch.config import VOC_CONFIG
-from mobilenet_yolo_tpu_torch.eval import make_predict_fn
+from mobilenet_yolo_tpu_torch import bench
+from mobilenet_yolo_tpu_torch.config import (VOC_CONFIG, default_data_yaml, load_config,
+                                             prune_plan)
+from mobilenet_yolo_tpu_torch.eval import evaluate_detection, make_predict_fn
 from mobilenet_yolo_tpu_torch.kernels import _build
 from mobilenet_yolo_tpu_torch.kernels import fused_block as fb
 from mobilenet_yolo_tpu_torch.kernels.aug_compose import aug_compose, aug_compose_reference
@@ -119,7 +150,7 @@ from mobilenet_yolo_tpu_torch.kernels.nms_suppress import suppress, suppress_ref
 from mobilenet_yolo_tpu_torch.kernels.slot_aug import slot_aug, slot_aug_reference
 from mobilenet_yolo_tpu_torch.kernels.stem_probe import STAGES, stem_probe, stem_probe_reference
 from mobilenet_yolo_tpu_torch.models import build_model
-from mobilenet_yolo_tpu_torch.models.bn_fold import fold_batchnorm
+from mobilenet_yolo_tpu_torch.models.bn_fold import calibrate_bn, fold_batchnorm
 from mobilenet_yolo_tpu_torch.ops.nms import _suppression_matrix
 from mobilenet_yolo_tpu_torch.tools import (bench_geometry, bench_train, probe_aug_kernels,
                                             probe_nms, probe_stem, probe_stem_cuda)
@@ -226,11 +257,39 @@ FUSED_F64_REL_TOL = 1e-5
 # rounding ~450-fold (2.7e-5 against float64), and folding rounds each
 # weight once more and the kernels sum in another order
 FOLD_F32_REL_TOL = 1e-3
+# folded heads vs the unfolded float32 heads on the init weights (which
+# contract, so each comparison sees the rounding of a few layers)
+INIT_FOLD_CASES = [("f32", None, F32_REL_TOL), ("bf16", torch.bfloat16, BF16_REL_TOL)]
 # per fused launch on the folded predict path, at the MobileNetV2 widths
 FUSED_PER_REQUEST = {"fused_stem_block0": 1, "fused_inverted_residual_s2": 4,
                      "fused_inverted_residual": 12}
 MODES = {"full": True, "split": "split", "plain": False}
 DTYPES = {"f32": None, "bf16": torch.bfloat16}
+ROOT = Path(__file__).resolve().parent
+SLIM50 = default_data_yaml("voc/slim50.yaml")
+# the evaluator on the card: 23 images in batches of 8 (a ragged 7 last),
+# ``cli/eval.py``'s top_k; float64 on both sides, so the mAP agrees to
+# float64 rounding of the metric's own sums
+EVAL_IMAGES = 23
+EVAL_BATCH = 8
+EVAL_TOP_K = 512
+EVAL_GT_ROWS = 8
+EVAL_MAP_TOL = 1e-9
+INFER_IMAGES = 5
+SUBPROCESS_TIMEOUT = 600
+# the bench's modes: each run as its own process
+# (python -m mobilenet_yolo_tpu_torch.bench) and through ``bench.main`` in
+# this process by ``phase_timing``
+BENCH_MODES = {
+    "f32": ["--dtype", "f32"],
+    "bf16": ["--dtype", "bf16"],
+    "f32_fold": ["--dtype", "f32", "--fold-bn"],
+    "bf16_fold": ["--dtype", "bf16", "--fold-bn"],
+    "f32_fold_slim50": ["--dtype", "f32", "--fold-bn", "--prune-yaml", SLIM50],
+    "bf16_fold_slim50": ["--dtype", "bf16", "--fold-bn", "--prune-yaml", SLIM50],
+    "f32_fold_u8": ["--dtype", "f32", "--fold-bn", "--input-dtype", "u8"],
+    "b1_f32": ["--batch-size", "1", "--dtype", "f32"],
+}
 
 
 def report(phase: str, **fields) -> None:
@@ -321,27 +380,6 @@ def head_logits(model, images_nhwc: torch.Tensor, dtype=None) -> dict[str, torch
     with torch.inference_mode(), torch.autocast(images_nhwc.device.type, dtype=dtype,
                                                 enabled=dtype is not None):
         return {k: v.float() for k, v in model(images_nhwc.permute(0, 3, 1, 2)).items()}
-
-
-def calibrate_bn(model: torch.nn.Module, images_nhwc: torch.Tensor) -> None:
-    """Set every BatchNorm's running statistics to the batch statistics of
-    ``images`` (one train-mode pass, cumulative average).
-
-    Straight from the init, the (0, 1) statistics let eval-mode activations
-    shrink ~C-fold at every depthwise conv (fan-out init over 9 inputs):
-    the heads give logits of ~1e-10, every score ties at 0.25 and NMS sees
-    one class. Calibrated, activations keep unit scale and scores spread.
-    """
-    bns = [m for m in model.modules() if isinstance(m, torch.nn.BatchNorm2d)]
-    for bn in bns:
-        bn.reset_running_stats()
-        bn.momentum = None
-    model.train()
-    with torch.no_grad():
-        model(images_nhwc.permute(0, 3, 1, 2))
-    for bn in bns:
-        bn.momentum = 0.1
-    model.eval()
 
 
 def check_logits(init_model: torch.nn.Module, images: torch.Tensor, device) -> None:
@@ -630,12 +668,22 @@ def tile_of(kernel: str, dt_name: str, x_shape: tuple, ch: int, cout: int) -> tu
 
 def phase_fused_kernels(device) -> tuple[dict, dict, list]:
     """Each fused kernel against its twin at every block shape of the served
-    model (batch 128, 352x352) and three small ragged cases, float32 and
-    bf16, TF32 off."""
+    VOC model and of the slim50 plan (batch 128, 352x352) and three small
+    ragged cases, float32 and bf16, TF32 off. The cases it returns for
+    timing are the VOC model's."""
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     backbone = build_model(VOC_CONFIG, generator=torch.Generator().manual_seed(SEED)).backbone
     shapes = block_shapes(backbone, BATCH, SIZE)
+    # slim50's blocks: hidden widths that end the last hidden chunk (48
+    # channels in bf16, 24 in float32) part-full; its stem is the VOC one
+    slim = build_model(dict(VOC_CONFIG, prune=prune_plan(SLIM50)),
+                       generator=torch.Generator().manual_seed(SEED)).backbone
+    voc_keys = {tuple(shape[1:]) for shape in shapes}
+    slim50 = [(f"slim50:{blocks}", *key) for blocks, *key in block_shapes(slim, BATCH, SIZE)
+              if tuple(key) not in voc_keys]
+    check(sum(ch % 48 != 0 for _, _, _, ch, _, _ in slim50) >= 8,
+          f"slim50's blocks have part-full last chunks: {[s[3] for s in slim50]}")
     extra = [("unaligned_w11", "fused_inverted_residual", (4, 13, 11, 24), 144, 24, True),
              ("odd_out_w11", "fused_inverted_residual_s2", (4, 22, 22, 16), 96, 24, False),
              ("stem_30x22", "fused_stem_block0", (4, 30, 22, 3), 32, 16, False)]
@@ -643,7 +691,7 @@ def phase_fused_kernels(device) -> tuple[dict, dict, list]:
     worst = {k: 0.0 for k in FUSED}
     worst_bf16 = {k: 0.0 for k in FUSED}  # relative to the largest output
     cases = []
-    for blocks, kernel, x_shape, ch, cout, residual in shapes + extra:
+    for blocks, kernel, x_shape, ch, cout, residual in shapes + slim50 + extra:
         for dt_name, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
             args = fused_args(gen, kernel, x_shape, ch, cout, dtype, device)
             got = run_fused(kernel, args, residual)
@@ -686,6 +734,20 @@ def phase_fused_kernels(device) -> tuple[dict, dict, list]:
     return worst, worst_bf16, cases
 
 
+def hold_folded_heads(phase: str, weights: str, folded, small: torch.Tensor,
+                      want: dict, cases) -> None:
+    """The folded model's heads against the unfolded float32 heads
+    ``want``, in each (dtype name, autocast dtype, tolerance) case."""
+    for dt_name, dtype, tol in cases:
+        got = head_logits(folded, small, dtype)
+        for key in ("out0", "out1"):
+            err = rel_err(got[key], want[key])
+            check(err <= tol,
+                  f"{phase}: {weights} weights, folded {dt_name} vs unfolded f32 {key}: {err:.3g}")
+            report(phase, weights=weights, head=key, dtype=dt_name,
+                   folded_vs_unfolded_f32_rel=f"{err:.3g}", tol=tol)
+
+
 def phase_serve_folded(device) -> tuple[dict, dict]:
     """The BatchNorm-folded serving path (``bench.py --fold-bn``'s): the VOC
     model built on the card, folded, served through ``make_predict_fn``;
@@ -698,15 +760,8 @@ def phase_serve_folded(device) -> tuple[dict, dict]:
     # the init weights contract, so each comparison sees the rounding of a
     # few layers (check_logits); float32 and bf16 against unfolded float32
     model.eval().to(memory_format=torch.channels_last)
-    want = head_logits(model, small)
-    folded = fold_batchnorm(model)
-    for dt_name, dtype, tol in (("f32", None, F32_REL_TOL), ("bf16", torch.bfloat16, BF16_REL_TOL)):
-        got = head_logits(folded, small, dtype)
-        for key in ("out0", "out1"):
-            err = rel_err(got[key], want[key])
-            check(err <= tol, f"init weights, folded {dt_name} vs unfolded f32 {key}: {err:.3g}")
-            report("serve_folded", weights="init", head=key, dtype=dt_name,
-                   folded_vs_unfolded_f32_rel=f"{err:.3g}", tol=tol)
+    hold_folded_heads("serve_folded", "init", fold_batchnorm(model), small,
+                      head_logits(model, small), INIT_FOLD_CASES)
 
     calibrate_bn(model, torch.from_numpy(
         rng.normal(0.0, 1.0, (4, SIZE, SIZE, 3)).astype(np.float32)).to(device))
@@ -854,9 +909,212 @@ def phase_tools(device) -> dict:
     return launches
 
 
+def phase_serve_pruned(device) -> dict:
+    """The served slim50 plan (``configs/voc/slim50.yaml``) folded on the
+    card. Its hidden widths (176, 232, 312, 224, 216, 152, 80, 264) end the
+    block kernels' last hidden chunk part-full (48 channels a chunk in
+    bf16, 24 in float32), which no VOC width does. Init weights: the folded
+    heads against the unfolded float32 heads, float32 at ``F32_REL_TOL``
+    and bf16 at ``BF16_REL_TOL`` (the network contracts, so each sees a few
+    layers' rounding, as in ``serve_folded``). Calibrated weights: float32
+    at ``FOLD_F32_REL_TOL`` (the bf16 error, amplified ~450-fold like
+    float32's, is printed, not held), then a b128 request in each dtype
+    through ``make_predict_fn``, the kernels' launch counts read around
+    them."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dict(VOC_CONFIG, prune=prune_plan(SLIM50))
+    rng = np.random.default_rng(SEED + 4)
+    model = build_model(cfg, generator=torch.Generator().manual_seed(SEED))
+    widths = [getattr(model.backbone, f"block{i}").expand.conv.out_channels
+              for i in range(1, model.backbone.num_blocks)]
+    ragged = sorted({w for w in widths if w % 48})
+    check(len(ragged) >= 8, f"slim50 has ragged hidden widths: {ragged}")
+    report("serve_pruned", hidden=widths, head=model.backbone.c5_features, ragged_bf16=ragged)
+    small = torch.from_numpy(rng.normal(0.0, 1.0, (2, SIZE, SIZE, 3)).astype(np.float32)).to(device)
+    model.eval().to(memory_format=torch.channels_last)
+    hold_folded_heads("serve_pruned", "init", fold_batchnorm(model), small,
+                      head_logits(model, small), INIT_FOLD_CASES)
+
+    calibrate_bn(model, torch.from_numpy(
+        rng.normal(0.0, 1.0, (4, SIZE, SIZE, 3)).astype(np.float32)).to(device))
+    model.to(memory_format=torch.channels_last)
+    folded = fold_batchnorm(model)
+    want = head_logits(model, small)
+    hold_folded_heads("serve_pruned", "calibrated", folded, small, want,
+                      [("f32", None, FOLD_F32_REL_TOL)])
+    got16 = head_logits(folded, small, torch.bfloat16)
+    report("serve_pruned", weights="calibrated", dtype="bf16", held=False,
+           **{f"{key}_folded_vs_unfolded_f32_rel": f"{rel_err(got16[key], want[key]):.3g}"
+              for key in ("out0", "out1")})
+
+    predict = {"f32": make_predict_fn(folded, cfg),
+               "bf16": make_predict_fn(folded, cfg, dtype=torch.bfloat16)}
+    gen = torch.Generator(device=device).manual_seed(SEED + 4)
+    x128 = torch.randn((BATCH, SIZE, SIZE, 3), generator=gen, device=device)
+    val_conf = torch.tensor(VAL_CONF, device=device)
+    # the main path: a b128 request a dtype through make_predict_fn
+    for counted in LAUNCH_COUNTERS:
+        counted.launches = 0
+    results = {mode: f(x128, val_conf) for mode, f in predict.items()}
+    torch.cuda.synchronize()
+    launches = {name: f.launches for name, f in FUSED.items()}
+    expected = {name: n * len(predict) for name, n in FUSED_PER_REQUEST.items()}
+    check(launches == expected, f"slim50 fused launches {launches} == {expected}")
+    check(suppress.launches == len(predict), "suppress launched once per slim50 request")
+    for mode, (dets, keep) in results.items():
+        valid = dets[..., 4] > val_conf
+        check(bool(torch.isfinite(dets).all()), f"slim50 {mode} detections finite")
+        check(0 < int(keep.sum()) < int(valid.sum()), f"slim50 {mode}: NMS kept some and cut some")
+        report("serve_pruned", request=f"{mode}_b{BATCH}", kept=int(keep.sum()),
+               valid=int(valid.sum()))
+    report("serve_pruned", launches=launches, suppress_launches=suppress.launches)
+    return {**launches, "nms_suppress": suppress.launches}
+
+
+def eval_loader(rng: np.random.Generator, images: np.ndarray, dets: torch.Tensor,
+                keep: torch.Tensor) -> list[dict]:
+    """Loader-style batches of ``EVAL_BATCH`` (the last one ragged) whose
+    ground truth is each image's first kept detections, jittered, plus a
+    random box, a fifth of the rows marked difficult: the mAP is then
+    neither 0 nor 1."""
+    n = images.shape[0]
+    gt = np.zeros((n, EVAL_GT_ROWS, 5), np.float32)
+    n_gt = np.zeros(n, np.int32)
+    for i in range(n):
+        kept = dets[i][keep[i]].cpu().numpy()[:EVAL_GT_ROWS - 1]
+        rows = [[d[6] + 1, (d[0] + d[2]) / 2, (d[1] + d[3]) / 2, d[2] - d[0], d[3] - d[1]]
+                for d in kept]
+        rows.append([rng.integers(1, 21), *rng.uniform(0.2, 0.8, 2), *rng.uniform(0.05, 0.4, 2)])
+        rows = np.asarray(rows, np.float32)
+        rows[:, 1:] += rng.normal(0.0, 0.01, rows[:, 1:].shape)
+        gt[i, :len(rows)], n_gt[i] = rows, len(rows)
+    difficult = (rng.random((n, EVAL_GT_ROWS)) < 0.2).astype(np.float32)
+    return [{"images": images[i:i + EVAL_BATCH], "gt": gt[i:i + EVAL_BATCH],
+             "n_gt": n_gt[i:i + EVAL_BATCH], "gt_difficult": difficult[i:i + EVAL_BATCH]}
+            for i in range(0, n, EVAL_BATCH)]
+
+
+def phase_eval(device) -> int:
+    """``evaluate_detection`` on the card against the same run on the CPU:
+    the VOC model with calibrated statistics, in float64 (a calibrated
+    random net amplifies float32 rounding ~450-fold, which could reorder
+    near-equal scores), ``EVAL_IMAGES`` 352x352 images in batches of
+    ``EVAL_BATCH`` with a ragged tail padded on the device, K = 512
+    (``cli/eval.py``'s top_k). Each batch's ``keep`` must be equal and the
+    mAP within ``EVAL_MAP_TOL``; the scan's launches are read around the
+    card's run."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    classes = load_config(default_data_yaml()).classes
+    rng = np.random.default_rng(SEED + 5)
+    model = build_model(VOC_CONFIG, device="cpu", generator=torch.Generator().manual_seed(SEED))
+    calibrate_bn(model, torch.from_numpy(
+        rng.normal(0.0, 1.0, (4, SIZE, SIZE, 3)).astype(np.float32)))
+    images = rng.normal(0.0, 1.0, (EVAL_IMAGES, SIZE, SIZE, 3))
+    f32_predict = make_predict_fn(copy.deepcopy(model).to(device), VOC_CONFIG, top_k=EVAL_TOP_K)
+    dets, keep = f32_predict(torch.from_numpy(images.astype(np.float32)).to(device),
+                             torch.tensor(VAL_CONF, device=device))
+    loader = eval_loader(rng, images, dets, keep)
+
+    keeps = {"card": [], "cpu": []}
+
+    def recorded(side: str, predict):
+        def call(batch, val_conf):
+            out = predict(batch, val_conf)
+            keeps[side].append(out[1].cpu())
+            return out
+        return call
+
+    card_predict = make_predict_fn(copy.deepcopy(model).double().to(device), VOC_CONFIG,
+                                   top_k=EVAL_TOP_K)
+    cpu_predict = make_predict_fn(copy.deepcopy(model).double(), VOC_CONFIG, top_k=EVAL_TOP_K)
+    # the main path: the evaluator over the loader on the card
+    suppress.launches = 0
+    card = evaluate_detection(recorded("card", card_predict), loader, classes, VAL_CONF,
+                              coco_ap=True, device=device)
+    torch.cuda.synchronize()
+    launches = suppress.launches
+    check(launches == len(loader), f"suppress launched once per eval batch ({launches})")
+    cpu = evaluate_detection(recorded("cpu", cpu_predict), loader, classes, VAL_CONF,
+                             coco_ap=True, device="cpu")
+    check([tuple(k.shape) for k in keeps["card"]] == [(EVAL_BATCH, EVAL_TOP_K)] * len(loader),
+          f"eval keep shapes {[tuple(k.shape) for k in keeps['card']]}")
+    for i, (got, want) in enumerate(zip(keeps["card"], keeps["cpu"], strict=True)):
+        check(torch.equal(got, want), f"eval batch {i}: keep, card == CPU")
+    map_err = abs(card["mAP"] - cpu["mAP"])
+    check(map_err <= EVAL_MAP_TOL, f"eval mAP card {card['mAP']} vs CPU {cpu['mAP']}")
+    check(card["tp"] == cpu["tp"] and card["fp"] == cpu["fp"], "eval TP/FP, card == CPU")
+    check(card["new_conf"] == cpu["new_conf"], "eval val_conf controller, card == CPU")
+    check(0.0 < card["mAP"] < 1.0, f"eval mAP {card['mAP']} is neither 0 nor 1")
+    report("eval", images=EVAL_IMAGES, batches=len(loader), top_k=EVAL_TOP_K, dtype="float64",
+           mAP=f"{card['mAP']:.6f}", cpu_mAP=f"{cpu['mAP']:.6f}", map_abs_err=f"{map_err:.3g}",
+           tol=EVAL_MAP_TOL, coco_AP=f"{card['coco']['AP']:.6f}", new_conf=card["new_conf"],
+           tp=int(sum(card["tp"].values())), fp=int(sum(card["fp"].values())),
+           kept=int(sum(int(k.sum()) for k in keeps["card"])), keep_equal=True,
+           suppress_launches=launches)
+    return launches
+
+
+def run_module(module: str, *args: str) -> str:
+    """``python -m module args`` from the repository root, as a user runs
+    it; fails the run on a non-zero exit. Returns its standard output."""
+    proc = subprocess.run([sys.executable, "-m", module, *args], cwd=ROOT, capture_output=True,
+                          text=True, timeout=SUBPROCESS_TIMEOUT, check=False)
+    check(proc.returncode == 0, f"{module} {' '.join(args)} exited {proc.returncode}:\n"
+                                f"{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
+    return proc.stdout
+
+
+def phase_infer(smi: str) -> None:
+    """The infer CLI as its own process on the card, random weights: a
+    directory of ``INFER_IMAGES`` seeded PNGs at batch 2 (a padded tail
+    batch), then one image; every input gets its ``<name>_result.jpg``."""
+    from PIL import Image
+
+    work = ROOT / "build" / "chip_smoke_infer"
+    shutil.rmtree(work, ignore_errors=True)
+    (work / "images").mkdir(parents=True)
+    rng = np.random.default_rng(SEED + 6)
+    for i in range(INFER_IMAGES):
+        Image.fromarray(rng.integers(0, 256, (300, 400, 3), dtype=np.uint8)).save(
+            work / "images" / f"im{i}.png")
+    common = ("--random-weights", "--val-conf", "0.05")
+    out = run_module("mobilenet_yolo_tpu_torch.cli.infer", *common, "-i", str(work / "images"),
+                     "--batch-size", "2", "--out-dir", str(work / "dir"))
+    written = sorted(p.name for p in (work / "dir").iterdir())
+    check(written == [f"im{i}_result.jpg" for i in range(INFER_IMAGES)],
+          f"infer wrote a result per image: {written}")
+    report("infer", mode="directory", results=len(written), line=out.strip().splitlines()[-1],
+           card=f"'{smi}'")
+    out = run_module("mobilenet_yolo_tpu_torch.cli.infer", *common, "-i",
+                     str(work / "images" / "im0.png"), "--out-dir", str(work / "single"))
+    check([p.name for p in (work / "single").iterdir()] == ["im0_result.jpg"],
+          "infer wrote the single image's result")
+    report("infer", mode="single", results=1, line=out.strip().splitlines()[0], card=f"'{smi}'")
+
+
+def phase_bench(smi: str) -> dict:
+    """``python -m mobilenet_yolo_tpu_torch.bench`` as its own process in
+    each of ``BENCH_MODES``: one JSON line each with a finite img/s and no
+    ``vs_baseline``, printed beside the card."""
+    records = {}
+    for mode, argv in BENCH_MODES.items():
+        lines = run_module("mobilenet_yolo_tpu_torch.bench", *argv).strip().splitlines()
+        check(len(lines) == 1, f"bench {mode} printed one line: {lines}")
+        rec = json.loads(lines[0])
+        check(set(rec) == {"metric", "value", "unit"} and np.isfinite(rec["value"])
+              and rec["value"] > 0, f"bench {mode}: {rec}")
+        records[mode] = rec
+        report("bench", mode=mode, args=" ".join(argv), img_per_s=rec["value"],
+               line=lines[0], card=f"'{smi}'")
+    return records
+
+
 def phase_timing(device, smi: str, state: dict) -> dict:
     predict, val_conf = state["predict"], state["val_conf"]
     model, x128 = state["model"], state["x128"]
+    fold = state["folded"]
     for mode, images in (("f32", x128), ("bf16", x128), ("u8", state["u8"])):
         ms = cuda_ms(lambda: predict[mode](images, val_conf), iters=20)
         report("timing", what=f"predict_b{BATCH}_{mode}", ms_per_batch=f"{ms:.3f}",
@@ -871,7 +1129,6 @@ def phase_timing(device, smi: str, state: dict) -> dict:
         report("timing", what=f"forward_only_b{BATCH}_{mode}", ms_per_batch=f"{ms:.3f}",
                card=f"'{smi}'")
 
-    fold = state["folded"]
     for mode, images in (("f32", x128), ("bf16", x128), ("u8", fold["u8"])):
         ms = cuda_ms(lambda: fold["predict"][mode](images, val_conf), iters=20)
         report("timing", what=f"folded_predict_b{BATCH}_{mode}", ms_per_batch=f"{ms:.3f}",
@@ -891,6 +1148,17 @@ def phase_timing(device, smi: str, state: dict) -> dict:
     lat.sort()
     report("timing", what="predict_b1_f32_latency", median_ms=f"{statistics.median(lat):.3f}",
            p90_ms=f"{lat[int(0.9 * len(lat))]:.3f}", samples=len(lat), card=f"'{smi}'")
+
+    # the bench itself in this process, after every earlier phase (the same
+    # model, input and calibration as its own-process run), to set beside
+    # its own-process lines
+    for mode, argv in BENCH_MODES.items():
+        with contextlib.redirect_stdout(io.StringIO()) as out:
+            rec = bench.main(argv)
+        check(out.getvalue() == json.dumps(rec) + "\n" and np.isfinite(rec["value"])
+              and rec["value"] > 0, f"in-process bench {mode}: {out.getvalue()!r}")
+        report("timing", what=f"in_process_bench_{mode}", img_per_s=rec["value"],
+               own_process_img_per_s=state["bench"][mode]["value"], card=f"'{smi}'")
 
     # the scan at the serving shapes through ``probe_nms``: CUDA events per
     # call of the wrapper (``ms``, as every other kernel; the wrapper's
@@ -917,6 +1185,16 @@ def phase_timing(device, smi: str, state: dict) -> dict:
             times["nms_suppress"].update(b1_ms=t["events_ms"], b1_device_ms=t["kernel_ms"],
                                          b1_cold_device_ms=t["cold_kernel_ms"],
                                          b1_bound_ms=t["bound_ms"])
+    # the evaluator's shape: a batch of EVAL_BATCH at K = 512
+    t = probe_nms.bench(EVAL_BATCH, EVAL_TOP_K, 0.05, 100)
+    check(t["kernel_ms"] is not None, "torch.profiler saw the scan kernel at K=512")
+    report("timing", what=f"suppress_b{EVAL_BATCH}_k{EVAL_TOP_K}",
+           kernel_ms=f"{t['events_ms']:.4f}", device_ms=f"{t['kernel_ms']:.4f}",
+           cold_device_ms=f"{t['cold_kernel_ms']:.4f}", plain_ms=f"{t['plain_ms']:.4f}",
+           bound_ms=f"{t['bound_ms']:.4f}", card=f"'{smi}'")
+    times["nms_suppress"].update(k512_b8_ms=t["events_ms"], k512_b8_device_ms=t["kernel_ms"],
+                                 k512_b8_cold_device_ms=t["cold_kernel_ms"],
+                                 k512_b8_plain_ms=t["plain_ms"], k512_b8_bound_ms=t["bound_ms"])
 
     size = TRAIN_SIZES[0]
     g = state["batches"][size]
@@ -1053,7 +1331,15 @@ def main() -> None:
     launches.update(fused_launches)
     launches["stem_probe"], max_err["stem_probe"], stem_times = phase_stem_probe(device, smi)
     phase_tools(device)
+    pruned_launches = phase_serve_pruned(device)
+    eval_launches = phase_eval(device)
+    phase_infer(smi)
+    state["bench"] = phase_bench(smi)
     times = phase_timing(device, smi, state)
+    times["nms_suppress"].update(eval_launches=eval_launches,
+                                 slim50_launches=pruned_launches.pop("nms_suppress"))
+    for name in FUSED:
+        times[name]["slim50_launches"] = pruned_launches[name]
     times["stem_probe"] = stem_times
     for name in FUSED:
         times[name]["bf16_max_rel_err"] = bf16_errs[name]
@@ -1068,6 +1354,10 @@ def main() -> None:
                                              "device_ms", "cold_device_ms",
                                              "whole_matrix_bound_ms", "b1_ms", "b1_device_ms",
                                              "b1_cold_device_ms", "b1_bound_ms",
+                                             "k512_b8_ms", "k512_b8_device_ms",
+                                             "k512_b8_cold_device_ms", "k512_b8_plain_ms",
+                                             "k512_b8_bound_ms", "eval_launches",
+                                             "slim50_launches",
                                              "prepass_ms", "pixel_pass_ms", "class_ms")
            + bf16_keys if key in times[name]}}
         for name, (source, replaces) in KERNELS.items()]}))

@@ -1,1 +1,1 @@
-"""Host-side helpers of the port (tracing and timing)."""
+"""Host-side helpers of the port (tracing and timing, drawing detections)."""

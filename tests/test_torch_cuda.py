@@ -17,6 +17,7 @@ import numpy as np
 import pytest
 import torch
 
+from mobilenet_yolo_tpu_torch.config import default_data_yaml, prune_plan
 from mobilenet_yolo_tpu_torch.eval import make_predict_fn
 from mobilenet_yolo_tpu_torch.kernels import fused_block as fb
 from mobilenet_yolo_tpu_torch.kernels.aug_compose import aug_compose, aug_compose_reference
@@ -26,6 +27,7 @@ from mobilenet_yolo_tpu_torch.models.bn_fold import fold_batchnorm
 from mobilenet_yolo_tpu_torch.kernels.slot_aug import slot_aug, slot_aug_reference
 from mobilenet_yolo_tpu_torch.ops.device_augment import geometric_compose, planned_color_jitter
 from mobilenet_yolo_tpu_torch.ops.nms import batched_nms
+from mobilenet_yolo_tpu_torch.tools.probe_fused_tiles import block_shapes
 from mobilenet_yolo_tpu_torch.tools.probe_nms import random_over as random_device_over
 from mobilenet_yolo_tpu_torch.train.synthetic import random_geometry_batch
 
@@ -524,6 +526,50 @@ def test_fused_block_kernel_matches_twin(cuda, shape, stride, residual, dtype):
     assert wrapper.launches == before + 1 and got.dtype == dtype
     want = fb.inverted_residual_reference(*args, residual=residual, stride=stride)
     assert got.shape == want.shape
+    _assert_fused_close(got, want, dtype)
+
+
+# every block of the served slim50 plan (configs/voc/slim50.yaml) at 352x352:
+# (block, stride, H in, Cin, hidden, Cout, residual). Hidden widths 176,
+# 232, 312, 224, 216, 152, 80 and 264 are not multiples of the bf16
+# kernel's 48-channel chunk (nor of the float32 kernel's 24), so each
+# launch ends in a partial chunk, which no VOC width gives
+SLIM50_BLOCKS = [
+    ("block1", 2, 176, 16, 96, 24, False), ("block2", 1, 88, 24, 144, 24, True),
+    ("block3", 2, 88, 24, 144, 32, False), ("block4", 1, 44, 32, 192, 32, True),
+    ("block5", 1, 44, 32, 176, 32, True), ("block6", 2, 44, 32, 192, 64, False),
+    ("block7", 1, 22, 64, 312, 64, True), ("block8", 1, 22, 64, 232, 64, True),
+    ("block9", 1, 22, 64, 176, 64, True), ("block10", 1, 22, 64, 288, 96, False),
+    ("block11", 1, 22, 96, 224, 96, True), ("block12", 1, 22, 96, 152, 96, True),
+    ("block13", 2, 22, 96, 216, 160, False), ("block14", 1, 11, 160, 152, 160, True),
+    ("block15", 1, 11, 160, 80, 160, True), ("block16", 1, 11, 160, 264, 320, False),
+]
+
+
+@pytest.fixture(scope="module")
+def slim50_shapes():
+    """block name -> (kernel, x shape, hidden, Cout, residual) of the folded
+    slim50 backbone at batch 2, 352x352, from the model itself."""
+    plan = prune_plan(default_data_yaml("voc/slim50.yaml"))
+    backbone = build_model(dict(VOC, prune=plan), device="cpu").backbone
+    return {name: key for names, *key in block_shapes(backbone, 2, 352)
+            for name in names.split("/")}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("block,stride,h,cin,ch,cout,residual", SLIM50_BLOCKS)
+def test_fused_block_kernel_at_slim50_widths(cuda, slim50_shapes, block, stride, h, cin, ch,
+                                            cout, residual, dtype):
+    kernel = "fused_inverted_residual" if stride == 1 else "fused_inverted_residual_s2"
+    assert slim50_shapes[block] == [kernel, (2, h, h, cin), ch, cout, residual]
+    args = _fused_args(h + ch, 2, h, h, cin, ch, cout, dtype, cuda)
+    wrapper = fb.fused_inverted_residual if stride == 1 else fb.fused_inverted_residual_s2
+    before = wrapper.launches
+    got = wrapper(*args, residual=residual) if stride == 1 else wrapper(*args)
+    torch.cuda.synchronize()
+    assert wrapper.launches == before + 1 and got.dtype == dtype
+    want = fb.inverted_residual_reference(*args, residual=residual, stride=stride)
+    assert got.shape == want.shape == (2, h // stride, h // stride, cout)
     _assert_fused_close(got, want, dtype)
 
 

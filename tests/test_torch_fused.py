@@ -13,7 +13,8 @@ package, on the CPU.
   card kernel shares. The bf16 kernel's launch plans at every block of the
   served model.
 * ``fold_batchnorm`` against JAX's: the folded state dicts are equal up to
-  an ulp or two of float32.
+  an ulp or two of float32. ``calibrate_bn`` sets each BatchNorm's running
+  statistics to its input's batch statistics.
 * The folded model's heads against JAX ``model.apply(fold_batchnorm(v))``
   and against the port's unfolded model, and the folded
   ``make_predict_fn`` against JAX's, at 1e-4 / 1e-5 as
@@ -41,7 +42,8 @@ from mobilenet_yolo_tpu_torch.convert import flax_to_state_dict
 from mobilenet_yolo_tpu_torch.eval import make_predict_fn
 from mobilenet_yolo_tpu_torch.kernels import fused_block as fb
 from mobilenet_yolo_tpu_torch.models import build_model
-from mobilenet_yolo_tpu_torch.models.bn_fold import fold_batchnorm
+from mobilenet_yolo_tpu_torch.models.bn_fold import calibrate_bn, fold_batchnorm
+from mobilenet_yolo_tpu_torch.models.layers import BN_MOMENTUM
 
 from _torch_parity import (SLIM50_CONFIG, VOC_CONFIG, jax_apply, jax_init, load_yaml,
                            nhwc_input, perturb, port_module, to_nchw, to_nhwc)
@@ -526,3 +528,36 @@ def test_build_model_places_on_the_card_by_default():
     gen = torch.Generator().manual_seed(3)
     model = build_model(cfg, device="cpu", generator=gen)
     assert next(model.parameters()).device.type == "cpu"
+
+
+def test_calibrate_bn_sets_the_batch_statistics():
+    """From the seeded init every eval-mode score ties at 0.25; after
+    calibration on one batch the scores spread, and every BatchNorm's
+    running statistics are the mean and biased variance of its input in
+    that batch (within 1e-5 of the input's scale: float32 sums against
+    float64 ones)."""
+    cfg = load_yaml(VOC_CONFIG)
+    model = build_model(cfg, device="cpu", generator=torch.Generator().manual_seed(0))
+    images = torch.from_numpy(nhwc_input(31, (2, 64, 64, 3)))
+
+    def scores():
+        dets, _ = make_predict_fn(model, cfg)(images, torch.tensor(0.0))
+        return dets[..., 4] * dets[..., 5]
+
+    assert float((scores() - 0.25).abs().max()) < 1e-6
+    bns = {name: m for name, m in model.named_modules() if isinstance(m, torch.nn.BatchNorm2d)}
+    inputs = {}
+    hooks = [m.register_forward_hook(
+        lambda mod, args, out, name=name: inputs.__setitem__(name, args[0].double()))
+        for name, m in bns.items()]
+    calibrate_bn(model, images)
+    for hook in hooks:
+        hook.remove()
+    assert not model.training and len(inputs) == len(bns) == 66
+    for name, bn in bns.items():
+        x = inputs[name]
+        mean, var = x.mean(dim=(0, 2, 3)), x.var(dim=(0, 2, 3), unbiased=False)
+        assert float((bn.running_mean.double() - mean).abs().max()) <= 1e-5 * float(x.abs().max())
+        assert float((bn.running_var.double() - var).abs().max()) <= 1e-5 * float(var.max())
+        assert bn.momentum == BN_MOMENTUM and int(bn.num_batches_tracked) == 1
+    assert float(scores().std()) > 1e-2
