@@ -37,7 +37,29 @@ Phases, one output line each (any failure raises and exits non-zero):
               once per step of its mode, and that the first float32 losses
               of the kernel modes agree with the plain ops' (noise on: every
               mode draws one noise stream from one seed).
-7. fused_kernels — the three fused-block kernels of the BatchNorm-folded
+7. data     — the input pipeline from JPEG shards on the card: a fabricated
+              VOC tree (``tools/make_fabricated_voc.py``, 512 trainval and 64
+              test images, seed 7) built into shards by ``python -m
+              mobilenet_yolo_tpu_torch.cli.build_dataset`` (its own
+              process; every record's labels read back against the XML,
+              the native record store and the cv2 decoder checked); the
+              VOC ``Loader`` (batch 32, the five buckets, mosaic [1, 4],
+              prefetch 2) alone for an epoch in host float32, uint8 and
+              device-geometry modes (batches/s, img/s); each mode's step fed
+              one epoch (host float32 into ``make_train_step``, uint8 into
+              its ``normalize`` + ``pixel_aug`` form, geometry into
+              ``make_geometry_train_step`` with ``fused_aug`` True and
+              "split", float32 and bf16; each mode first warmed up at every
+              bucket) beside the same step on a batch resident on the card
+              at 352: step ms, img/s, the card's idle share
+              (``torch.profiler``, CUDA activity) and the share outside the
+              steps' CUDA events;
+              losses finite, parameters moved, each kernel launched once per
+              step of its mode (``loader_launches``); then both kernels
+              against their twins on a loader batch at each bucket (288-416)
+              and again with 0xFF in the inactive slots, whose outputs must
+              not move.
+8. fused_kernels — the three fused-block kernels of the BatchNorm-folded
               forward (``fused_stem_block0``, ``fused_inverted_residual_s2``,
               ``fused_inverted_residual``; all on the tensor cores, float32
               in three TF32 passes) against their cuDNN twins, TF32 off, in
@@ -47,14 +69,14 @@ Phases, one output line each (any failure raises and exits non-zero):
               part-full), an unaligned width and odd output widths; and
               the float32 block kernel (block 16's shape) and stem kernel
               (its b128 352x352 shape) against the float64 twin.
-8. serve_folded — the same VOC model folded (``fold_batchnorm``) and served
+9. serve_folded — the same VOC model folded (``fold_batchnorm``) and served
               through ``make_predict_fn``: batch 1 and 128 at 352x352 in
               float32, uint8 normalize and bf16. Checks each request
               launched the stem kernel once, the stride-2 kernel 4 times and
               the stride-1 kernel 12 times, and that the folded model's
               heads match the unfolded model's (init weights in float32 and
               bf16, served weights in float32).
-9. stem_probe — the staged stem roofline kernel (``stem_probe``, stages a,
+10. stem_probe — the staged stem roofline kernel (``stem_probe``, stages a,
               b, c) driven through ``python -m
               mobilenet_yolo_tpu_torch.tools.probe_stem_cuda`` as a user runs
               it (a small check and the batch-128 352x352 bench, beside the
@@ -62,28 +84,28 @@ Phases, one output line each (any failure raises and exits non-zero):
               ``vs_stage_a``, c's time over a's); checks its launches,
               then each stage against its twin at a small shape, at S=18 (odd
               S/2) and at 128x352.
-10. tools   — the measurement tools at reduced iterations: ``bench_train`` at
+11. tools   — the measurement tools at reduced iterations: ``bench_train`` at
               batch 32 float32, plain and ``--remat`` (the backward adds time
               and at least doubles the FLOPs), one remat step against the
               plain step (same loss, same BatchNorm buffers, one count each),
               ``bench_geometry --stages --fused on`` at 416,
               ``probe_aug_kernels`` and ``probe_stem``; checks they launched
               the augmentation kernels.
-11. serve_pruned — the served slim50 plan (``configs/voc/slim50.yaml``,
+12. serve_pruned — the served slim50 plan (``configs/voc/slim50.yaml``,
               hidden widths off every 48- and 24-channel chunk) folded:
               heads against the unfolded model's (init weights float32 and
               bf16, calibrated float32), then a b128 request a dtype through
               ``make_predict_fn``, the fused kernels' launches counted.
-12. eval    — ``evaluate_detection`` on the card against the same run on
+13. eval    — ``evaluate_detection`` on the card against the same run on
               the CPU, float64, 23 images at batch 8 (a ragged tail), K=512:
               ``keep`` equal, mAP within 1e-9; the scan's launches counted.
-13. infer   — ``python -m mobilenet_yolo_tpu_torch.cli.infer`` as its own
+14. infer   — ``python -m mobilenet_yolo_tpu_torch.cli.infer`` as its own
               process (random weights): a directory of 5 PNGs at batch 2,
               then one image; a result file per input.
-14. bench   — ``python -m mobilenet_yolo_tpu_torch.bench`` as its own
+15. bench   — ``python -m mobilenet_yolo_tpu_torch.bench`` as its own
               process in 8 modes (``BENCH_MODES``): one JSON line each, a
               finite img/s, printed beside the card.
-15. timing  — CUDA-event throughput at batch 128 (f32, bf16, u8), unfolded
+16. timing  — CUDA-event throughput at batch 128 (f32, bf16, u8), unfolded
               and folded, batch-1 latency, the bench itself in each of its
               modes in this process (``bench.main``: ``in_process_bench_*``,
               beside its own-process number), the train step per mode and
@@ -104,8 +126,11 @@ wrapper, as for every kernel) and the kernel's own device time from
 its times at the evaluator's B=8, K=512 (``k512_b8_*``), its launches on
 the eval and slim50 paths (``eval_launches``, ``slim50_launches``; the
 fused kernels' ``slim50_launches`` too), ``slot_aug``'s pre-pass and pixel
-pass apart and
-per slot class (``prepass_ms``, ``pixel_pass_ms``, ``class_ms``), and, for
+pass apart and per slot class (``prepass_ms``, ``pixel_pass_ms``,
+``class_ms``), the two augmentation kernels' launches on the data phase's
+loader path (``loader_launches``), their worst error on its batches
+(``loader_max_abs_err``) and their times on a loader batch at each bucket
+beside the twin's and the bound (``loader_buckets``), and, for
 the three fused kernels, the float32 twins' kernels alone per b128 predict
 (``library_device_ms``, from
 ``torch.profiler``) and the float32 bound on CUDA cores (``fma_bound_ms``;
@@ -117,9 +142,10 @@ to the largest output (``bf16_max_rel_err``).
 
 The line before the last is the per-kernel JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX; yaml is read
-through the port's ``config.py`` (the slim50 plan, the VOC class names)
-and PIL only to write the infer phase's images. The subprocess phases
-write under ``build/`` (gitignored).
+through the port's ``config.py`` (the slim50 plan, the VOC class names,
+the data yaml) and PIL only to write the infer phase's images and read
+the data phase's JPEG sizes. The subprocess phases write under ``build/``
+(gitignored).
 """
 
 from __future__ import annotations
@@ -140,8 +166,12 @@ import numpy as np
 import torch
 
 from mobilenet_yolo_tpu_torch import bench
-from mobilenet_yolo_tpu_torch.config import (VOC_CONFIG, default_data_yaml, load_config,
-                                             prune_plan)
+from mobilenet_yolo_tpu_torch.config import (TRAIN_BUCKETS, VOC_CONFIG, default_data_yaml,
+                                             load_config, load_yaml, prune_plan)
+from mobilenet_yolo_tpu_torch.data import augment as host_augment
+from mobilenet_yolo_tpu_torch.data import records
+from mobilenet_yolo_tpu_torch.data.dataset_builder import parse_voc_xml, to_yolo_labels
+from mobilenet_yolo_tpu_torch.data.pipeline import DetectionDataset, Loader, batch_to_device
 from mobilenet_yolo_tpu_torch.eval import evaluate_detection, make_predict_fn
 from mobilenet_yolo_tpu_torch.kernels import _build
 from mobilenet_yolo_tpu_torch.kernels import fused_block as fb
@@ -158,6 +188,7 @@ from mobilenet_yolo_tpu_torch.tools.probe_fused_tiles import block_shapes, kerne
 from mobilenet_yolo_tpu_torch.train import (GEOMETRY_BATCH_KEYS, create_train_state,
                                             make_geometry_train_step, make_train_step,
                                             random_geometry_batch)
+from mobilenet_yolo_tpu_torch.train.synthetic import random_program
 from mobilenet_yolo_tpu_torch.utils.profiling import (BF16_FLOPS, F32_FLOPS, HBM_BYTES_PER_S,
                                                       TF32_FLOPS, bound_ms, device_ms,
                                                       kernel_ms_by_name)
@@ -290,6 +321,26 @@ BENCH_MODES = {
     "f32_fold_u8": ["--dtype", "f32", "--fold-bn", "--input-dtype", "u8"],
     "b1_f32": ["--batch-size", "1", "--dtype", "f32"],
 }
+# the data phase: a fabricated VOC tree (tools/make_fabricated_voc.py: VOC
+# XML and JPEGs of 240-480 px sides, difficult boxes), its shards built by
+# the port's build_dataset CLI, and the VOC loader over them: batch 32, the
+# five buckets, mosaic [1, 4], prefetch 2
+DATA_DIR = ROOT / "build" / "chip_smoke_voc"
+DATA_TRAIN = 512
+DATA_TEST = 64
+DATA_SEED = 7
+DATA_PREFETCH = 2
+# the loader's three modes: DetectionDataset and Loader arguments
+LOADER_MODES = {"host": ({}, {}),
+                "u8": ({"apply_photometric": False}, {"output_uint8": True}),
+                "geometry": ({"apply_photometric": False}, {"device_geometry": True})}
+# loader-fed training runs: (loader mode, fused_aug of the geometry step, dtype)
+FED_MODES = {"host_f32": ("host", None, None), "u8_f32": ("u8", None, None),
+             "full_f32": ("geometry", True, None), "split_f32": ("geometry", "split", None),
+             "full_bf16": ("geometry", True, torch.bfloat16),
+             "split_bf16": ("geometry", "split", torch.bfloat16)}
+# steps of each mode on a batch resident on the card, after a warmup step
+DATA_REFERENCE_STEPS = 5
 
 
 def report(phase: str, **fields) -> None:
@@ -616,6 +667,296 @@ def phase_train(device, batches: dict) -> tuple[dict, dict]:
            first_loss_plain=f"{first['plain']:.6f}", rel_full=f"{rel['full']:.3g}",
            rel_split=f"{rel['split']:.3g}", tol=AUG_MODE_LOSS_RTOL)
     return launches, runs
+
+
+def build_voc_shards(smi: str) -> dict:
+    """Fabricate the VOC tree and build its shards with the port's
+    ``build_dataset`` CLI, each as its own process; check that the native
+    record store loaded and that every record's labels read back as the
+    tree's XML gives them. Returns the data yaml."""
+    from PIL import Image
+
+    shutil.rmtree(DATA_DIR, ignore_errors=True)
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, str(ROOT / "tools" / "make_fabricated_voc.py"),
+                           "--root", str(DATA_DIR), "--train", str(DATA_TRAIN), "--test",
+                           str(DATA_TEST), "--seed", str(DATA_SEED)], cwd=ROOT,
+                          capture_output=True, text=True, timeout=SUBPROCESS_TIMEOUT, check=False)
+    check(proc.returncode == 0, f"make_fabricated_voc exited {proc.returncode}:\n"
+                                f"{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
+    fabricate_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    run_module("mobilenet_yolo_tpu_torch.cli.build_dataset", "-d", str(DATA_DIR / "data.yaml"))
+    build_s = time.perf_counter() - t0
+    check(records.native_loaded(), f"the native record store loaded: {records.route()}")
+    check(host_augment._try_cv2() is not None, "the decoder is cv2")
+    data = load_yaml(str(DATA_DIR / "data.yaml"))
+    classes_map = {k: v for v, k in enumerate(["background", *data["classes"]["map"]])}
+    n_records, n_boxes, shard_bytes = 0, 0, 0
+    for split, keep_difficult, n in (("trainval_dataset_path", False, DATA_TRAIN),
+                                     ("test_dataset_path", True, DATA_TEST)):
+        shard = data[split]["lmdb"]
+        reader = records.RecordReader(shard)
+        check(len(reader) == n, f"{split}: {len(reader)} records, {n} written")
+        names = Path(data[split]["lists"][0]).read_text().split()
+        for i, name in enumerate(names):
+            rec = reader[i]
+            w, h = Image.open(io.BytesIO(rec.image_bytes)).size  # the JPEG's header
+            want = to_yolo_labels(*parse_voc_xml(str(DATA_DIR / "Annotations" / f"{name}.xml"),
+                                                 classes_map), w, h, keep_difficult)
+            check(np.array_equal(rec.labels, want), f"{split} record {i} ({name}) labels")
+            n_boxes += len(want)
+        n_records += n
+        shard_bytes += sum(f.stat().st_size for f in Path(shard).iterdir())
+    report("data", what="build", fabricate_s=f"{fabricate_s:.2f}", build_dataset_s=f"{build_s:.2f}",
+           records=n_records, boxes=n_boxes, shard_mb=f"{shard_bytes / 1e6:.2f}",
+           labels_read_back=True, records_route=records.route(), decoder="cv2",
+           card=f"'{smi}'")
+    return data
+
+
+def voc_loader(shard: str, mode: str, sizes=None, prefetch: int = DATA_PREFETCH) -> Loader:
+    """The VOC training loader over ``shard`` in one of ``LOADER_MODES``."""
+    ds_kw, loader_kw = LOADER_MODES[mode]
+    ds = DetectionDataset(records.RecordReader(shard), phase="train",
+                          expand_scale=VOC_CONFIG["expand_scale"], **ds_kw)
+    norm = VOC_CONFIG["normalize"]
+    return Loader(ds, TRAIN_BATCH, sizes or VOC_CONFIG["train_img_size"], norm["mean"],
+                  norm["std"], mosaic_num=VOC_CONFIG["mosaic_num"], seed=SEED, prefetch=prefetch,
+                  **loader_kw)
+
+
+def data_step(model, mode: str, fused, dtype):
+    """The train step a loader mode feeds: the plain step on host float32
+    images, the plain step normalising uint8 and running the photometric
+    programs on the card, or the geometry step in ``fused`` mode."""
+    if mode == "geometry":
+        return make_geometry_train_step(model, VOC_CONFIG, fused_aug=fused, dtype=dtype)
+    u8 = mode == "u8"
+    return make_train_step(model, VOC_CONFIG, normalize=u8, pixel_aug=u8, dtype=dtype)
+
+
+def call_step(step, state, mode: str, t: dict, seed: int, out_hw):
+    if mode == "host":
+        return step(state, t["images"], t["gt"], t["n_gt"])
+    if mode == "u8":
+        return step(state, t["images"], t["gt"], t["n_gt"], t["jitter_op"], t["jitter_factor"])
+    return step(state, *(t[k] for k in GEOMETRY_BATCH_KEYS), t["gt"], t["n_gt"], seed,
+                out_hw=out_hw)
+
+
+def resident_batch(mode: str, device, size: int = SIZE) -> dict:
+    """A batch at ``size`` already on the card, in ``mode``'s form: random
+    normalised images, random uint8 images with programs, or
+    ``random_geometry_batch``."""
+    rng = np.random.default_rng(SEED + 11)
+    geom = random_geometry_batch(rng, TRAIN_BATCH, size)
+    if mode == "geometry":
+        return geometry_tensors(geom, device)
+    batch = {"gt": geom["gt"], "n_gt": geom["n_gt"]}
+    if mode == "host":
+        batch["images"] = rng.normal(0.0, 1.0, (TRAIN_BATCH, size, size, 3)).astype(np.float32)
+    else:
+        batch["images"] = rng.integers(0, 256, (TRAIN_BATCH, size, size, 3), dtype=np.uint8)
+        programs = [random_program(rng) for _ in range(TRAIN_BATCH)]
+        batch["jitter_op"] = np.stack([p[0] for p in programs])
+        batch["jitter_factor"] = np.stack([p[1] for p in programs])
+    return geometry_tensors(batch, device)
+
+
+def card_busy_ms(prof) -> float:
+    """Milliseconds in which the card ran a kernel or a copy during a
+    ``torch.profiler`` run: the union of its CUDA activity intervals, read
+    from the raw trace (``key_averages`` would build an event object for
+    each of the ~2,300 launches a step)."""
+    spans = sorted((e.start_ns(), e.end_ns()) for e in prof.profiler.kineto_results.events()
+                   if e.device_type() == torch.autograd.DeviceType.CUDA)
+    busy, reach = 0, 0
+    for start, end in spans:
+        if end > reach:
+            busy += end - max(start, reach)
+            reach = end
+    return busy / 1e6
+
+
+def timed_steps(batches, step, state, mode: str) -> dict:
+    """Run the step on each batch of ``batches`` (loader batches, copied to
+    the card as they come, or batches on the card) under ``torch.profiler``
+    (CUDA activity only): CUDA events around each step, the host clock
+    around the whole run, which ends in a synchronize.
+
+    Two idle shares of the wall time: ``idle_share``, the card's, outside
+    every kernel and copy the profiler saw (waiting for the loader, and the
+    host's launches within and between steps); ``between_steps_idle``,
+    outside every step's events (waiting for the loader and the copy)."""
+    events, losses, out_hws = [], [], []
+    cuda_activity = [torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=cuda_activity) as prof:
+        t0 = time.perf_counter()
+        for i, (batch, out_hw) in enumerate(batches):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            state, metrics = call_step(step, state, mode, batch, AUG_SEED + i, out_hw)
+            end.record()
+            events.append((start, end))
+            losses.append(metrics["loss"])
+            out_hws.append(out_hw)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    steps_ms = sum(a.elapsed_time(b) for a, b in events)
+    device_busy_ms = card_busy_ms(prof)
+    check(0 < device_busy_ms <= wall_ms, f"{mode}: the profiler saw {device_busy_ms:.1f} ms "
+                                         f"of the card's work in {wall_ms:.1f} ms")
+    losses = [float(x) for x in losses]
+    check(all(np.isfinite(losses)), f"{mode} losses finite: {losses}")
+    return {"steps": len(events), "wall_ms": wall_ms, "step_ms": steps_ms / len(events),
+            "img_per_s": len(events) * TRAIN_BATCH * 1e3 / wall_ms,
+            "device_busy_ms": device_busy_ms, "idle_share": 1.0 - device_busy_ms / wall_ms,
+            "between_steps_idle": 1.0 - steps_ms / wall_ms, "losses": losses,
+            "sizes": sorted({hw[0] for hw in out_hws})}
+
+
+def loader_feed(loader: Loader, device):
+    """(batch on the card, out_hw) per loader batch, copied through
+    ``batch_to_device`` (a fresh pinned copy, so the ring may refill the
+    loader's buffer at once)."""
+    for batch in loader:
+        out_hw = batch.get("out_size") or batch["images"].shape[1:3]
+        yield batch_to_device(batch, device), tuple(int(x) for x in out_hw)
+
+
+def phase_data(device, smi: str) -> dict:
+    """The input pipeline from JPEG shards into the training steps on the
+    card: the loader alone in each mode, then feeding its step (the
+    geometry step in both kernel modes, float32 and bf16), each beside the
+    same step on a batch resident on the card; then the two augmentation
+    kernels against their twins on a loader batch at each VOC bucket, with
+    stale bytes in the inactive slots."""
+    t_phase = time.perf_counter()
+    data = build_voc_shards(smi)
+    shard = data["trainval_dataset_path"]["lmdb"]
+
+    for mode in LOADER_MODES:
+        t0 = time.perf_counter()
+        n, sources = 0, 0
+        for batch in voc_loader(shard, mode):
+            n += 1
+            sources += batch["count"]
+        dt = time.perf_counter() - t0
+        report("data", what=f"loader_{mode}", batches=n, seconds=f"{dt:.3f}",
+               batches_per_s=f"{n / dt:.3f}", img_per_s=f"{n * TRAIN_BATCH / dt:.1f}",
+               source_img_per_s=f"{sources / dt:.1f}", prefetch=DATA_PREFETCH,
+               card=f"'{smi}'")
+
+    init = build_model(VOC_CONFIG, generator=torch.Generator().manual_seed(SEED))
+    init = init.to(memory_format=torch.channels_last)
+    watch = ("backbone.stem.conv.weight", "backbone.stem.bn.running_mean")
+    start = {k: v.detach().clone() for k, v in init.state_dict().items() if k in watch}
+    runs = {}
+    for name, (mode, fused, dtype) in FED_MODES.items():
+        model = copy.deepcopy(init)
+        state, step = create_train_state(model), data_step(model, mode, fused, dtype)
+        # a warmup step at every bucket, so that no first-shape cost lands
+        # in the loader-fed epoch
+        for size in TRAIN_BUCKETS:
+            call_step(step, state, mode, resident_batch(mode, device, size), AUG_SEED,
+                      (size, size))
+        resident = [(resident_batch(mode, device), (SIZE, SIZE))]
+        runs[name] = (model, state, step,
+                      timed_steps(resident * DATA_REFERENCE_STEPS, step, state, mode))
+
+    # the loader path: each mode's step fed one epoch, the kernels' counts
+    # read around the whole of it
+    slot_aug.launches = aug_compose.launches = 0
+    expected = {"slot_aug": 0, "aug_compose": 0}
+    for name, (mode, fused, dtype) in FED_MODES.items():
+        model, state, step, ref = runs[name]
+        before = (slot_aug.launches, aug_compose.launches)
+        fed = timed_steps(loader_feed(voc_loader(shard, mode), device), step, state, mode)
+        torch.cuda.synchronize()
+        launched = (slot_aug.launches - before[0], aug_compose.launches - before[1])
+        want = (fed["steps"] if fused == "split" else 0, fed["steps"] if fused is True else 0)
+        check(launched == want, f"{name}: kernel launches (slot_aug, aug_compose) {launched} "
+                                f"== one per step of its mode {want}")
+        expected["slot_aug"] += want[0]
+        expected["aug_compose"] += want[1]
+        moved = {k: not torch.equal(v, model.state_dict()[k]) for k, v in start.items()}
+        check(all(moved.values()), f"{name} params and BN stats moved: {moved}")
+        report("data", what=f"fed_{name}", steps=fed["steps"], buckets=fed["sizes"],
+               step_ms=f"{fed['step_ms']:.3f}", img_per_s=f"{fed['img_per_s']:.1f}",
+               idle_share=f"{fed['idle_share']:.4f}",
+               between_steps_idle=f"{fed['between_steps_idle']:.4f}",
+               device_busy_ms_per_step=f"{fed['device_busy_ms'] / fed['steps']:.3f}",
+               resident_step_ms=f"{ref['step_ms']:.3f}",
+               resident_img_per_s=f"{ref['img_per_s']:.1f}",
+               resident_idle_share=f"{ref['idle_share']:.4f}",
+               resident_between_steps_idle=f"{ref['between_steps_idle']:.4f}",
+               resident_device_busy_ms_per_step=f"{ref['device_busy_ms'] / ref['steps']:.3f}",
+               resident_size=SIZE,
+               losses="/".join(f"{x:.4f}" for x in fed["losses"][:3]) + "/...",
+               launches=launched, card=f"'{smi}'")
+    torch.cuda.synchronize()
+    launches = {"slot_aug": slot_aug.launches, "aug_compose": aug_compose.launches}
+    check(launches == expected and min(launches.values()) > 0,
+          f"loader-path kernel launches {launches} == steps of their modes {expected}")
+    report("data", loader_launches=launches)
+
+    # both kernels on a loader batch at every bucket, against their twins;
+    # then the inactive slots, zero above, hold 0xFF: no active output may move
+    worst = {"slot_aug": 0.0, "aug_compose": 0.0}
+    buckets = {"slot_aug": {}, "aug_compose": {}}
+    for size in TRAIN_BUCKETS:
+        batch = next(iter(voc_loader(shard, "geometry", sizes=[[size, size]], prefetch=0)))
+        active = batch["active"]
+        check(batch["slots"].shape[2] == size and not active.all() and active.any(1).all(),
+              f"S={size}: staged at the bucket, inactive slots present")
+        batch["slots"][~active] = 0
+        g = batch_to_device(batch, device)
+        stale = dict(g, slots=g["slots"].clone())
+        stale["slots"][~g["active"]] = 0xFF
+        args, stale_args = slot_args(g, AUG_SEED), slot_args(stale, AUG_SEED)
+        out = slot_aug(*args)
+        err = aug_err(out, slot_aug_reference(*args, dtype=torch.bfloat16),
+                      f"slot_aug on a loader batch, S={size}")
+        worst["slot_aug"] = max(worst["slot_aug"], err)
+        b, t = active.shape
+        check(torch.equal(slot_aug(*stale_args).view(b, t, 3, size, size)[g["active"]],
+                          out.view(b, t, 3, size, size)[g["active"]]),
+              f"slot_aug S={size}: active slots unmoved by 0xFF in the inactive ones")
+        cargs, stale_cargs = compose_args(g, AUG_SEED), compose_args(stale, AUG_SEED)
+        out = aug_compose(*cargs, (size, size))
+        err = aug_err(out, aug_compose_reference(*cargs, (size, size)),
+                      f"aug_compose on a loader batch, S={size}")
+        worst["aug_compose"] = max(worst["aug_compose"], err)
+        check(torch.equal(aug_compose(*stale_cargs, (size, size)), out),
+              f"aug_compose S={size}: images unmoved by 0xFF in the inactive slots")
+        # times at this bucket on the loader batch, beside the twin and the bound
+        n_slots = b * t
+        slot_t = {"ms": cuda_ms(lambda: slot_aug(*args), iters=20),
+                  "plain_ms": cuda_ms(lambda: slot_aug_reference(*args, dtype=torch.bfloat16),
+                                      iters=2, warmup=1)}
+        slot_t["bound_ms"] = bound_ms(0, n_slots * size * size * 3 * (1 + 2))[0]
+        comp_t = {"ms": cuda_ms(lambda: aug_compose(*cargs, (size, size)), iters=20),
+                  "plain_ms": cuda_ms(lambda: aug_compose_reference(*cargs, (size, size)),
+                                      iters=2, warmup=1)}
+        comp_t["bound_ms"] = bound_ms(0, int(active.sum()) * size * size * 3
+                                      + b * size * size * 3 * 2)[0]
+        buckets["slot_aug"][size], buckets["aug_compose"][size] = slot_t, comp_t
+        report("data", what=f"kernels_s{size}", slots=int(active.sum()), of_slots=n_slots,
+               four_tile_images=int((active.sum(1) == 4).sum()),
+               noised=int(batch["noise_gate"].sum()),
+               slot_aug_max_abs_err=worst["slot_aug"],
+               aug_compose_max_abs_err=worst["aug_compose"], stale_bytes_unmoved=True,
+               slot_aug_ms=f"{slot_t['ms']:.4f}", slot_aug_plain_ms=f"{slot_t['plain_ms']:.4f}",
+               slot_aug_bound_ms=f"{slot_t['bound_ms']:.4f}",
+               aug_compose_ms=f"{comp_t['ms']:.4f}",
+               aug_compose_plain_ms=f"{comp_t['plain_ms']:.4f}",
+               aug_compose_bound_ms=f"{comp_t['bound_ms']:.4f}", card=f"'{smi}'")
+    report("data", phase_seconds=f"{time.perf_counter() - t_phase:.1f}", card=f"'{smi}'")
+    return {name: {"loader_launches": launches[name],
+                   "loader_max_abs_err": worst[name],
+                   "loader_buckets": buckets[name]} for name in launches}
 
 
 def fused_work(kernel: str, x_shape: tuple, ch: int, cout: int, elem: int) -> tuple[int, int]:
@@ -1325,6 +1666,7 @@ def main() -> None:
     train_launches, state["train_runs"] = phase_train(device, batches)
     launches.update(train_launches)
     state["batches"] = batches
+    loader_times = phase_data(device, smi)
     fused_errs, bf16_errs, state["fused_cases"] = phase_fused_kernels(device)
     max_err.update(fused_errs)
     fused_launches, state["folded"] = phase_serve_folded(device)
@@ -1341,6 +1683,8 @@ def main() -> None:
     for name in FUSED:
         times[name]["slim50_launches"] = pruned_launches[name]
     times["stem_probe"] = stem_times
+    for name, fields in loader_times.items():
+        times[name].update(fields)
     for name in FUSED:
         times[name]["bf16_max_rel_err"] = bf16_errs[name]
         times[name]["bf16_source"] = BF16_SOURCES[name]
@@ -1358,7 +1702,9 @@ def main() -> None:
                                              "k512_b8_cold_device_ms", "k512_b8_plain_ms",
                                              "k512_b8_bound_ms", "eval_launches",
                                              "slim50_launches",
-                                             "prepass_ms", "pixel_pass_ms", "class_ms")
+                                             "prepass_ms", "pixel_pass_ms", "class_ms",
+                                             "loader_launches", "loader_max_abs_err",
+                                             "loader_buckets")
            + bf16_keys if key in times[name]}}
         for name, (source, replaces) in KERNELS.items()]}))
     print(smi, flush=True)

@@ -4,7 +4,7 @@ Port of ``mobilenet_yolo_tpu/eval/detector.py:23-108``
 (``make_predict_fn``). PyTorch runs eagerly, so there is no jit: ``predict``
 is a plain function under ``torch.inference_mode``. ``val_conf`` is a 0-d
 tensor, as the traced scalar is in JAX. The ``mesh`` argument waits for
-the parallelism port (ROADMAP.md, Queue 1 item 7).
+the parallelism port (ROADMAP.md, Queue 1: parallel/mesh.py).
 """
 
 from __future__ import annotations

@@ -4,7 +4,7 @@ Port of ``mobilenet_yolo_tpu/eval/evaluator.py`` (reference train.py:333-424,
 ``test``): run detection over the eval set, collect per-image detections
 and ground truths, adjust the confidence gate from the predicted/GT
 box-count ratio, and compute VOC 11-point mAP. The ``mesh`` argument
-waits for the parallelism port (ROADMAP.md, Queue 1 item 6), as
+waits for the parallelism port (ROADMAP.md, Queue 1: parallel/mesh.py), as
 ``make_predict_fn``'s does.
 """
 

@@ -39,7 +39,7 @@ def build_model(config: dict, backbone: str = "mbv2", dtype=None, *,
     if backbone in ("mbv3", "mbv3_macc"):
         raise NotImplementedError(
             f"backbone {backbone!r} is not ported yet "
-            "(ROADMAP.md, Queue 1 item 8: MobileNetV3 graphs)")
+            "(ROADMAP.md, Queue 1: models/mobilenetv3.py)")
     if backbone != "mbv2":
         raise ValueError(f"unknown backbone {backbone!r}")
     device = torch.device(device)

@@ -8,6 +8,10 @@ that the device-geometry train step runs: ``slot_noise``,
 hand-written kernels that fuse these stages (``kernels/slot_aug.py``,
 ``kernels/aug_compose.py``) build their plain twins on this module.
 
+The standalone ops (``color_jitter``, ``additive_noise``,
+``device_pixel_aug``; no train path runs them) draw their gates, factors
+and noise from the caller's ``torch.Generator`` where JAX takes a key.
+
 The noise comes from one counter-based generator (``noise_bits``), the
 same in the plain ops, the twins and the CUDA kernels
 (``csrc/aug_common.cuh``): the uniform word j of slot n under ``seed`` is
@@ -117,6 +121,89 @@ def planned_color_jitter(images: torch.Tensor, op_ids: torch.Tensor, factors: to
                      0.0, 255.0)
     x = torch.where(hue_gate.view(-1, 1, 1, 1), xh, xf).to(dtype)
     return cheap_phase(x, post_ops, post_f)
+
+
+def _uniform(n: int, generator, device, lo: float = 0.0, hi: float = 1.0) -> torch.Tensor:
+    """(n,) U(lo, hi) from ``generator`` (on ``device``)."""
+    return torch.rand(n, generator=generator, device=device) * (hi - lo) + lo
+
+
+def jitter_params(n: int, generator: torch.Generator | None = None, device=None) -> dict:
+    """The gates and factors of :func:`color_jitter` for ``n`` images, drawn
+    in order brightness, contrast, saturation, hue, gamma, each a (n,) gate
+    U < 0.5 then its (n,) value: factors U(0.5, 1.5), the hue delta
+    U(-18, 18)/255 of a turn. A gated-off factor is 1 and a gated-off hue
+    ``apply_hue`` False."""
+    out = {}
+    for name in ("brightness", "contrast", "saturation", "hue", "gamma"):
+        gate = _uniform(n, generator, device) < 0.5
+        if name == "hue":
+            out["apply_hue"] = gate
+            out["hue"] = _uniform(n, generator, device, -18 / 255.0, 18 / 255.0)
+        else:
+            out[name] = torch.where(gate, _uniform(n, generator, device, 0.5, 1.5),
+                                    torch.ones(n, device=device))
+    return out
+
+
+def apply_color_jitter(images: torch.Tensor, brightness, contrast, saturation, apply_hue, hue,
+                       gamma) -> torch.Tensor:
+    """:func:`color_jitter` with its draws given ((B,) tensors): the JAX op's
+    fixed order and clip points (``device_augment.py:80-101``). Brightness
+    feeds the contrast mean unclipped; one clip after saturation, one
+    after hue and one after gamma."""
+    x = images.to(F32)
+
+    def per_image(v):
+        return v.to(F32).view(-1, 1, 1, 1)
+
+    x = x * per_image(brightness)
+    mean = _luma(x).mean(dim=(1, 2)).view(-1, 1, 1, 1)
+    x = mean + per_image(contrast) * (x - mean)
+    gray = _luma(x)[..., None]
+    x = torch.clamp(gray + per_image(saturation) * (x - gray), 0.0, 255.0)
+    h, s, v = _rgb_to_hsv(x / 255.0)
+    h = torch.where(apply_hue.view(-1, 1, 1), (h + hue.to(F32).view(-1, 1, 1)) % 1.0, h)
+    x = torch.clamp(_hsv_to_rgb(h, s, v) * 255.0, 0.0, 255.0)
+    return torch.clamp((x / 255.0) ** per_image(gamma) * 255.0, 0.0, 255.0)
+
+
+def color_jitter(images: torch.Tensor, generator: torch.Generator | None = None) -> torch.Tensor:
+    """Per-image photometric distortion in a fixed order on a raw [0, 255]
+    batch (``device_augment.py:65-105``): brightness, contrast, saturation,
+    hue, gamma, each applied with p=0.5 per image. images (B, H, W, 3)
+    uint8 or float; ``generator`` (on the images' device; None: the
+    global one) draws :func:`jitter_params`. Returns f32 in [0, 255].
+
+    The train paths run :func:`planned_color_jitter` instead (the host
+    planner's shuffled order, clipped after every op)."""
+    params = jitter_params(images.shape[0], generator, images.device)
+    return apply_color_jitter(images, **params)
+
+
+def additive_noise(images: torch.Tensor, generator: torch.Generator | None = None) -> torch.Tensor:
+    """imgaug AdditiveGaussianNoise (``device_augment.py:198-213``): per
+    image a gate U < 0.5, a scale U(0, 0.03 * 255) and a per-channel gate
+    U < 0.3, then a per-channel field (B, H, W, 3) and a shared one
+    (B, H, W) of standard normals; a per-channel image takes the first, the
+    others the second. Draws in that order from ``generator`` (on the
+    images' device). Returns f32 in [0, 255]."""
+    x = images.to(F32)
+    b, dev = x.shape[0], x.device
+    apply = (_uniform(b, generator, dev) < 0.5).view(-1, 1, 1, 1)
+    scale = _uniform(b, generator, dev, 0.0, 0.03 * 255.0).view(-1, 1, 1, 1)
+    per_channel = (_uniform(b, generator, dev) < 0.3).view(-1, 1, 1, 1)
+    n3 = torch.randn(x.shape, generator=generator, device=dev)
+    n1 = torch.randn(x.shape[:3], generator=generator, device=dev)[..., None]
+    noise = torch.where(per_channel, n3, n1) * scale
+    return torch.clamp(torch.where(apply, x + noise, x), 0.0, 255.0)
+
+
+def device_pixel_aug(images: torch.Tensor, generator: torch.Generator | None = None) -> torch.Tensor:
+    """:func:`color_jitter`, then independently gated :func:`additive_noise`,
+    both from ``generator`` (``device_augment.py:216-225``; for standalone
+    use, not a train path)."""
+    return additive_noise(color_jitter(images, generator), generator)
 
 
 _MASK32 = 0xFFFFFFFF

@@ -45,7 +45,7 @@ def _refuse_slim(config: dict) -> None:
     not ported yet; a config asking for it is refused, never ignored."""
     if float(config.get("slim_l1") or 0.0) > 0.0:
         raise NotImplementedError("slim_l1 > 0 needs the prune.py port "
-                                  "(ROADMAP.md, Queue 1 item 8)")
+                                  "(ROADMAP.md, Queue 1: prune.py and slim prox)")
 
 
 def _to_device(arr: np.ndarray, device: torch.device, dtype=None) -> torch.Tensor:

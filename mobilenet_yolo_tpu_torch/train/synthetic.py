@@ -1,11 +1,12 @@
 """Random device-geometry batches, for driving the train step without data.
 
-``random_geometry_batch`` draws a batch in ``Loader(device_geometry=True)``'s
-contract (``mobilenet_yolo_tpu/data/geometry.py:GroupPlan``) from a numpy
-generator alone: no images to decode, no cv2, no JAX. The traffic is the
-VOC loader's: each image's group size is drawn as
-``data/mosaic.py:sample_group_size`` draws it with the VOC config's
-``mosaic_num: [1, 4]`` (a quarter of the images are 4-tile mosaics), and
+``random_geometry_batch`` draws a batch in the contract of the port's
+``Loader(device_geometry=True)`` (``data/geometry.py:GroupPlan``, planned by
+``data/geometry.py:GeometryPlanner``) from a numpy generator alone: no
+images to decode, no cv2. The traffic is the VOC loader's: each image's
+group size is drawn as ``data/mosaic.py:sample_group_size`` draws it with
+the VOC config's ``mosaic_num: [1, 4]`` (a quarter of the images are
+4-tile mosaics), and
 each slot's noise gate as ``data/augment.py:pixel_noise`` draws it (on for
 a quarter of the slots). A single is a crop, optionally expanded, on a
 constant fill; a mosaic a crop per quadrant of a random centre, each
@@ -22,7 +23,7 @@ import numpy as np
 MAX_TILES = 4
 STEPS = 5
 HUE_MAX = 18.0 / 255.0  # hue delta in turns, data/augment.py
-MOSAIC_NUM = (1, 4)     # mobilenet_yolo_tpu/configs/voc/config.yaml:13
+MOSAIC_NUM = (1, 4)     # mobilenet_yolo_tpu_torch/configs/voc/config.yaml:13
 
 
 def _mirror_x(rect: np.ndarray) -> np.ndarray:

@@ -11,11 +11,15 @@ from __future__ import annotations
 from pathlib import Path
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import torch
 import yaml
 
+from mobilenet_yolo_tpu.models import MBv2YOLO as JaxMBv2YOLO
+from mobilenet_yolo_tpu.train import state as j_state
 from mobilenet_yolo_tpu_torch.convert import flax_to_state_dict, load_flax_variables
+from mobilenet_yolo_tpu_torch.models.mbv2_yolo import MBv2YOLO
 
 REPO = Path(__file__).resolve().parent.parent
 VOC_CONFIG = REPO / "mobilenet_yolo_tpu" / "configs" / "voc" / "config.yaml"
@@ -140,3 +144,37 @@ def state_dict_of(collection: str, tree: dict) -> dict:
     under the port's state-dict keys."""
     tree = jax.tree_util.tree_map(np.asarray, tree)
     return {k: v.numpy() for k, v in flax_to_state_dict({collection: tree}).items()}
+
+
+# ------------------------------------------- float64 whole-step comparisons
+
+
+def width035_variables64() -> dict:
+    """The JAX init of the width-0.35 MBv2-YOLO (3 classes), perturbed (BN
+    statistics away from (0, 1), ``out`` kernels spread), as float64 numpy."""
+    jm = JaxMBv2YOLO(num_classes=3, num_anchors=3, width_mult=0.35)
+    return jax.tree_util.tree_map(lambda a: np.asarray(a, np.float64),
+                                  perturb(jax_init(jm, np.zeros((1, 32, 32, 3), np.float32)),
+                                          seed=1))
+
+
+def float64_pair(variables: dict):
+    """The JAX model computing in float64, and the port holding the same
+    weights in float64."""
+    jm = JaxMBv2YOLO(num_classes=3, num_anchors=3, width_mult=0.35, dtype=jnp.float64)
+    port = MBv2YOLO(num_classes=3, num_anchors=3, width_mult=0.35, dtype=torch.float64)
+    return jm, load_flax_variables(port, variables)
+
+
+def jax_train_state(variables: dict, tx):
+    return j_state.TrainState(
+        params=variables["params"], batch_stats=variables["batch_stats"],
+        opt_state=tx.init(variables["params"]), epoch=jnp.int32(0),
+        best_acc=jnp.float32(0), val_conf=jnp.float32(0.1), batch_idx=jnp.int32(0))
+
+
+def assert_bn_stats_match(model: torch.nn.Module, new_stats) -> None:
+    """BN statistics after the step: float64 forwards, to 1e-9."""
+    got = model.state_dict()
+    for key, want in state_dict_of("batch_stats", new_stats).items():
+        np.testing.assert_allclose(got[key].numpy(), want, rtol=1e-9, atol=1e-12, err_msg=key)

@@ -1,6 +1,7 @@
-"""The port on the card: each CUDA kernel against its plain twin, the
-geometry train step in each augmentation mode, and the BatchNorm-folded
-predict through the fused-block kernels.
+"""The port on the card: each CUDA kernel against its plain twin (the two
+augmentation kernels also on batches of the loader), the geometry train
+step in each augmentation mode, and the BatchNorm-folded predict through
+the fused-block kernels.
 
 Every test here needs an NVIDIA GPU and ``nvcc`` (the kernel builds from
 ``mobilenet_yolo_tpu_torch/csrc/`` at first use) and skips elsewhere. The
@@ -13,11 +14,17 @@ The scan is boolean logic, so the NMS kernel must equal its twin bit for
 bit; the other kernels' tolerances are stated beside them.
 """
 
+import subprocess
+import sys
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
 
 from mobilenet_yolo_tpu_torch.config import default_data_yaml, prune_plan
+from mobilenet_yolo_tpu_torch.data.pipeline import DetectionDataset, Loader, batch_to_device
+from mobilenet_yolo_tpu_torch.data.records import RecordReader
 from mobilenet_yolo_tpu_torch.eval import make_predict_fn
 from mobilenet_yolo_tpu_torch.kernels import fused_block as fb
 from mobilenet_yolo_tpu_torch.kernels.aug_compose import aug_compose, aug_compose_reference
@@ -464,6 +471,52 @@ def test_geometry_step_runs_each_mode(cuda, fused_aug):
     full = fused_aug in (None, True)
     assert (slot_aug.launches - counts[0], aug_compose.launches - counts[1]) == \
         (int(fused_aug == "split"), int(full))
+
+
+# ------------------------------------------- the kernels on loader batches
+
+
+@pytest.fixture(scope="module")
+def voc_shard(tmp_path_factory):
+    """A fabricated VOC tree (16 trainval images of 240-480 px sides) built
+    into a shard by the port's ``build_dataset`` CLI, as a user runs both."""
+    root = tmp_path_factory.mktemp("voc")
+    repo = Path(__file__).resolve().parent.parent
+    for cmd in ([str(repo / "tools" / "make_fabricated_voc.py"), "--root", str(root),
+                 "--train", "16", "--test", "2"],
+                ["-m", "mobilenet_yolo_tpu_torch.cli.build_dataset", "-d",
+                 str(root / "data.yaml")]):
+        subprocess.run([sys.executable, *cmd], cwd=repo, check=True, capture_output=True,
+                       timeout=300)
+    return str(root / "train-records")
+
+
+@pytest.mark.parametrize("size", [288, 320, 384])
+def test_aug_kernels_on_a_loader_batch(cuda, voc_shard, size):
+    """A ``Loader(device_geometry=True)`` batch of real JPEGs at a VOC
+    bucket: both kernels against their twins; then 0xFF in the inactive
+    slots (the slot ring hands the kernels stale bytes there) moves no
+    active output bit."""
+    ds = DetectionDataset(RecordReader(voc_shard), phase="train", apply_photometric=False)
+    loader = Loader(ds, 8, [[size, size]], [0.5] * 3, [1.0] * 3, mosaic_num=[1, 4], prefetch=0,
+                    device_geometry=True, seed=size)
+    batch = next(iter(loader))
+    active = batch["active"]
+    assert batch["slots"].shape == (8, 4, size, size, 3)
+    assert active.any(1).all() and not active.all()
+    batch["slots"][~active] = 0
+    g = batch_to_device(batch, cuda)
+    stale = dict(g, slots=g["slots"].clone())
+    stale["slots"][~g["active"]] = 0xFF
+    sargs, stale_sargs = _slot_args(g, cuda), _slot_args(stale, cuda)
+    got = slot_aug(*sargs)
+    _assert_aug_close(got, slot_aug_reference(*sargs, dtype=torch.bfloat16))
+    on = g["active"].reshape(-1)
+    assert torch.equal(slot_aug(*stale_sargs)[on], got[on])
+    cargs, stale_cargs = _compose_args(g, cuda), _compose_args(stale, cuda)
+    got = aug_compose(*cargs, (size, size))
+    _assert_aug_close(got, aug_compose_reference(*cargs, (size, size)))
+    assert torch.equal(aug_compose(*stale_cargs, (size, size)), got)
 
 
 # --------------------------------------- the fused blocks of the folded model

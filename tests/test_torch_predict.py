@@ -112,7 +112,11 @@ def test_port_imports_no_jax():
         "for name in names:\n"
         "    importlib.import_module(name)\n"
         "assert len(names) >= 15, names\n"
-        "bad = [m for m in ('jax', 'flax', 'optax', 'orbax', 'mobilenet_yolo_tpu')\n"
+        "new = {'data.records', 'data.augment', 'data.mosaic', 'data.geometry',\n"
+        "       'data.pipeline', 'data.synthetic', 'data.dataset_builder', 'data.workers',\n"
+        "       'cli.build_dataset'}\n"
+        "assert {pkg.__name__ + '.' + m for m in new} <= set(names), names\n"
+        "bad = [m for m in ('jax', 'flax', 'optax', 'orbax', 'grain', 'mobilenet_yolo_tpu')\n"
         "       if m in sys.modules]\n"
         "assert not bad, bad\n"
         "print('ok', len(names))\n")

@@ -41,8 +41,11 @@ from mobilenet_yolo_tpu_torch.train import (GEOMETRY_BATCH_KEYS, create_train_st
                                             make_geometry_train_step, make_train_step)
 from mobilenet_yolo_tpu_torch.train.state import make_optimizer
 
-from _torch_parity import (SMALL_YOLO_CONFIG, geometry_batch, jax_init, padded_gt, perturb,
-                           state_dict_of)
+from _torch_parity import (SMALL_YOLO_CONFIG, geometry_batch, padded_gt, state_dict_of,
+                           width035_variables64)
+from _torch_parity import assert_bn_stats_match as _assert_bn_stats_match
+from _torch_parity import float64_pair as _pair
+from _torch_parity import jax_train_state as _jax_state
 
 
 def _t(x, requires_grad=False):
@@ -334,34 +337,7 @@ def test_slim_l1_is_refused():
 
 @pytest.fixture(scope="module")
 def variables64():
-    """The JAX init of the width-0.35 MBv2-YOLO, perturbed (BN statistics
-    away from (0, 1), ``out`` kernels spread), as float64 numpy."""
-    jm = JaxMBv2YOLO(num_classes=3, num_anchors=3, width_mult=0.35)
-    return jax.tree_util.tree_map(lambda a: np.asarray(a, np.float64),
-                                  perturb(jax_init(jm, np.zeros((1, 32, 32, 3), np.float32)),
-                                          seed=1))
-
-
-def _pair(variables):
-    """The JAX model computing in float64, and the port holding the same
-    weights in float64."""
-    jm = JaxMBv2YOLO(num_classes=3, num_anchors=3, width_mult=0.35, dtype=jnp.float64)
-    port = MBv2YOLO(num_classes=3, num_anchors=3, width_mult=0.35, dtype=torch.float64)
-    return jm, load_flax_variables(port, variables)
-
-
-def _jax_state(variables, tx):
-    return j_state.TrainState(
-        params=variables["params"], batch_stats=variables["batch_stats"],
-        opt_state=tx.init(variables["params"]), epoch=jnp.int32(0),
-        best_acc=jnp.float32(0), val_conf=jnp.float32(0.1), batch_idx=jnp.int32(0))
-
-
-def _assert_bn_stats_match(model, new_stats):
-    """BN statistics after the step: float64 forwards, to 1e-9."""
-    got = model.state_dict()
-    for key, want in state_dict_of("batch_stats", new_stats).items():
-        np.testing.assert_allclose(got[key].numpy(), want, rtol=1e-9, atol=1e-12, err_msg=key)
+    return width035_variables64()
 
 
 def _assert_grads_match(port_params, want_grads):
