@@ -19,5 +19,9 @@ and augmentation probes), ``utils.profiling`` (CUDA-event timing, traces),
 contract as plain dicts); the serving front door (``bench``, ``cli.infer``,
 ``eval.evaluator``); and the input pipeline — ``data`` (record shards,
 decode and augmentation, the device-geometry planner, ``Loader`` and
-``WorkerLoader``, the dataset builder) and ``cli.build_dataset``.
+``WorkerLoader``, the dataset builder) and ``cli.build_dataset``; and the
+training front door — ``train.loop`` (``Trainer``), ``train.checkpoints``,
+``cli.train``, ``cli.eval``, ``hpo.random_search``, the one-device seam
+``parallel.mesh`` and the copied ``utils`` meters, logger and TensorBoard
+writer.
 """

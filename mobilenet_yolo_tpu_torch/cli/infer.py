@@ -11,11 +11,12 @@ val_conf=0.3 (inference.py:46-47), draws boxes above conf*cls_conf > 0.15
 (inference.py:83) and alpha-blends segmentation maps on the G/R channels
 (inference.py:100-103). Writes ``<out-dir>/<name>_result.jpg``.
 
-Weights: ``--random-weights`` (seeded ``build_model``), or a flat ``.npz``
-of the JAX package's variables (``tools_io.save_params_npz``'s format).
-A checkpoint directory raises: the port reads no Orbax checkpoints yet
-(ROADMAP.md, Queue 1 item 5). The model runs on ``--device`` (default
-``cuda``, which raises without a card).
+Weights: ``--random-weights`` (seeded ``build_model``), a flat ``.npz``
+of the JAX package's variables (``tools_io.save_params_npz``'s format), or
+a checkpoint directory of the port's trainer (``train/checkpoints.py``),
+whose latest step is served: its averaged weights where the run kept them.
+The model runs on ``--device`` (default ``cuda``, which raises without a
+card).
 """
 
 from __future__ import annotations
@@ -34,6 +35,7 @@ from mobilenet_yolo_tpu_torch.eval import make_predict_fn
 from mobilenet_yolo_tpu_torch.models import build_model
 from mobilenet_yolo_tpu_torch.tools import device_name, tool_device
 from mobilenet_yolo_tpu_torch.tools_io import load_params_npz
+from mobilenet_yolo_tpu_torch.train.checkpoints import CheckpointManager, served_state_dict
 from mobilenet_yolo_tpu_torch.utils.profiling import request_ms
 
 TIMED_CALLS = 16
@@ -43,8 +45,8 @@ WARMUP_CALLS = 2
 def get_args(argv=None):
     parser = argparse.ArgumentParser(description="YOLO Inference")
     parser.add_argument("-c", "--checkpoint", default="checkpoint", type=str,
-                        help=".npz params file (Orbax checkpoint directories are not "
-                             "read yet)")
+                        help=".npz params file, or a checkpoint directory of the "
+                             "port's trainer")
     parser.add_argument("-y", "--data_yaml", dest="data_yaml",
                         default=default_data_yaml())
     parser.add_argument("-i", "--input", default="images/000166.jpg",
@@ -68,16 +70,19 @@ def get_args(argv=None):
 def load_variables(model: nn.Module, checkpoint: str, random_ok: bool = False) -> nn.Module:
     """Load the served weights into ``model`` and return it: the model as
     built with ``random_ok``, else a flat ``.npz`` of the JAX package's
-    variables through ``convert.load_flax_variables`` (``strict=True``)."""
+    variables through ``convert.load_flax_variables``, else the latest step
+    of a checkpoint directory, its averaged weights where the run kept them
+    (the weights it evaluated and chose its best by); ``strict=True``."""
     if random_ok:
         return model
     if checkpoint.endswith(".npz") and os.path.isfile(checkpoint):
         params, batch_stats = load_params_npz(checkpoint)
         return load_flax_variables(model, {"params": params, "batch_stats": batch_stats})
     if os.path.isdir(checkpoint):
-        raise NotImplementedError(
-            f"{checkpoint} is a checkpoint directory: the port does not read Orbax "
-            "checkpoints yet (ROADMAP.md, Queue 1 item 5); pass a .npz of the variables")
+        raw = CheckpointManager(checkpoint).restore_latest_raw()
+        if raw is not None:
+            model.load_state_dict(served_state_dict(raw), strict=True)
+            return model
     raise FileNotFoundError(f"no loadable checkpoint at {checkpoint}")
 
 

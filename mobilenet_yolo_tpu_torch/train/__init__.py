@@ -1,6 +1,7 @@
 """Training: the AdamW state, the learning-rate schedule and the train
-steps, plain and device-geometry (port of ``mobilenet_yolo_tpu/train/``
-without the loop, checkpoints and CLIs)."""
+steps, plain and device-geometry; the epoch loop (``train.loop``),
+checkpoints (``train.checkpoints``) and the HPO seam (``train.hpo``)
+(port of ``mobilenet_yolo_tpu/train/``)."""
 
 from mobilenet_yolo_tpu_torch.train.schedule import learning_rate_for_epoch  # noqa: F401
 from mobilenet_yolo_tpu_torch.train.state import TrainState, create_train_state, make_optimizer  # noqa: F401

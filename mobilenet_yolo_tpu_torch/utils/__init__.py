@@ -1,1 +1,2 @@
-"""Host-side helpers of the port (tracing and timing, drawing detections)."""
+"""Host-side helpers of the port (tracing and timing, drawing detections,
+the training meters, ``log.txt`` logger and TensorBoard event writer)."""

@@ -128,8 +128,10 @@ def test_infer_preprocesses_as_the_jax_cli(tmp_path, rng, monkeypatch):
 
 
 def test_load_variables_refuses_a_checkpoint_directory(tmp_path):
+    """A directory that holds no checkpoint step is refused (a trainer's
+    checkpoint directory is served: ``test_torch_checkpoints.py``)."""
     model = build_model(load_yaml(VOC_CONFIG), device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
+    with pytest.raises(FileNotFoundError, match="no loadable checkpoint"):
         infer.load_variables(model, str(tmp_path))
     with pytest.raises(FileNotFoundError):
         infer.load_variables(model, str(tmp_path / "missing.npz"))

@@ -960,3 +960,122 @@ def test_remat_step_matches_the_plain_step(cuda):
             assert torch.equal(got[key], want[key]), key
         if key.endswith("num_batches_tracked"):
             assert int(got[key]) == 1, key
+
+
+# ------------------------------------------------- the training loop on the card
+
+
+def _fit_shard(root, n=16):
+    """``n`` JPEG records of 64x72, one box each of class 1-3."""
+    import cv2
+
+    from mobilenet_yolo_tpu_torch.data.records import RecordWriter
+
+    rng = np.random.default_rng(0)
+    with RecordWriter(str(root)) as w:
+        for i in range(n):
+            img = rng.integers(0, 255, (64, 72, 3), np.uint8)
+            labels = np.asarray([[1 + i % 3, *rng.uniform(0.3, 0.7, 2), 0.4, 0.5]], np.float32)
+            w.append_record(cv2.imencode(".jpg", img)[1].tobytes(), labels)
+    return str(root)
+
+
+FIT_CFG = {"img_w": 64, "img_h": 64, "iou_weighting": 0.02, "expand_scale": 1.5,
+           "normalize": {"mean": [0.5] * 3, "std": [1.0] * 3},
+           "yolo": {"num_classes": 3, "num_anchors": 3, "ignore_thresh": [0.6, 0.55],
+                    "iou_thresh": 0.55, "mask": [[0, 1, 2], [3, 4, 5]],
+                    "anchors": [[18, 22], [24, 24], [30, 28], [6, 8], [10, 12], [14, 10]]}}
+
+
+def _geometry_trainer(device, ckdir, every=0):
+    from mobilenet_yolo_tpu_torch.models.mbv2_yolo import MBv2YOLO
+    from mobilenet_yolo_tpu_torch.train.loop import Trainer, TrainerConfig
+
+    model = MBv2YOLO(num_classes=3, width_mult=0.35, generator=torch.Generator().manual_seed(0))
+    tcfg = TrainerConfig(epochs=2, learning_rate=1e-3, checkpoint_dir=str(ckdir),
+                         tensorboard_dir=None, eval_every=2, checkpoint_every_batches=every)
+    return Trainer(model, FIT_CFG, ["background", "a", "b", "c"], tcfg, verbose=False,
+                   device_normalize=True, device_geometry=True, device=device)
+
+
+def _geometry_loaders(shard):
+    norm = FIT_CFG["normalize"]
+    train = Loader(DetectionDataset(RecordReader(shard), phase="train", expand_scale=1.5,
+                                    apply_photometric=False), 4, [[64, 64]], norm["mean"],
+                   norm["std"], mosaic_num=[1], max_gt=10, prefetch=0, seed=3,
+                   output_uint8=True, device_geometry=True)
+    test = Loader(DetectionDataset(RecordReader(shard), phase="test"), 4, [[64, 64]],
+                  norm["mean"], norm["std"], shuffle=False, pad_final=False, output_uint8=True)
+    return train, test
+
+
+def test_geometry_fit_checkpoint_restores_on_the_cpu(cuda, tmp_path):
+    """A 2-epoch ``Trainer.fit`` on the card in geometry mode (the
+    ``aug_compose`` kernel, once per step; the scan once per eval batch):
+    its last checkpoint restores on the CPU, every tensor equal to the
+    card's, and into a CPU trainer's state."""
+    from mobilenet_yolo_tpu_torch.train.checkpoints import CheckpointManager
+
+    shard = _fit_shard(tmp_path / "shard")
+    trainer = _geometry_trainer(cuda, tmp_path / "ck")
+    train, test = _geometry_loaders(shard)
+    before = (aug_compose.launches, suppress.launches)
+    best = trainer.fit(lambda: train, lambda: test)
+    torch.cuda.synchronize()
+    assert np.isfinite(best)
+    assert aug_compose.launches - before[0] == 8       # 2 epochs of 4 batches
+    assert suppress.launches - before[1] == 4          # one eval of 4 batches
+    raw = CheckpointManager(str(tmp_path / "ck")).restore_latest_raw()
+    assert raw["epoch"] == 2
+    card = trainer.model.state_dict()
+    for k, v in raw["model"].items():
+        assert v.device.type == "cpu" and torch.equal(v, card[k].cpu()), k
+    cpu_trainer = _geometry_trainer("cpu", tmp_path / "ck")
+    assert cpu_trainer.maybe_resume() and cpu_trainer.state.epoch == 2
+    for k, v in cpu_trainer.model.state_dict().items():
+        assert torch.equal(v, card[k].cpu()), k
+
+
+def test_geometry_resume_on_the_card(cuda, tmp_path):
+    """The port's mid-epoch resume on the card: run C, restored from run B's
+    snapshot after batch 1 of epoch 1, against the uninterrupted run A.
+    cuDNN's backward may sum in another order from run to run, and A's
+    four steps and the three of B that C starts from are separate runs, so
+    the parameters are held within 2 * lr per step (an AdamW update moves a
+    weight by about lr at most) and the largest difference is printed;
+    epoch, batch and step counts exactly."""
+    from mobilenet_yolo_tpu_torch.train.checkpoints import CheckpointManager
+
+    shard = _fit_shard(tmp_path / "shard", n=8)
+
+    def run(trainer):
+        train, test = _geometry_loaders(shard)
+        trainer.fit(lambda: train, lambda: test)
+        return dict(trainer.model.named_parameters()), trainer.state
+
+    a, a_state = run(_geometry_trainer(cuda, tmp_path / "a"))
+    run(_geometry_trainer(cuda, tmp_path / "b", every=1))
+    c_trainer = _geometry_trainer(cuda, tmp_path / "c", every=1)
+    c_trainer.state = CheckpointManager(str(tmp_path / "b")).restore(1_000_001, c_trainer.state)
+    assert (c_trainer.state.epoch, c_trainer.state.batch_idx) == (1, 1)
+    c, c_state = run(c_trainer)
+    assert c_state.optimizer_steps() == a_state.optimizer_steps() == 4
+    worst = max(float((a[k] - c[k]).detach().abs().max()) for k in a)
+    print(f"resumed vs uninterrupted, largest parameter difference: {worst:.3g}")
+    assert worst <= 2 * 1e-3 * 4
+
+
+def test_entry_points_raise_without_a_card(cuda, tmp_path, monkeypatch):
+    """``Trainer``, ``cli/train.py`` and ``cli/eval.py`` asked for ``cuda``
+    where no card is visible raise rather than carry on on the CPU."""
+    from mobilenet_yolo_tpu_torch.cli import eval as cli_eval
+    from mobilenet_yolo_tpu_torch.cli import train as cli_train
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.chdir(tmp_path)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        _geometry_trainer("cuda", tmp_path / "ck")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli_train.main(cli_train.get_params(["--synthetic", "-c", str(tmp_path / "ck")]))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli_eval.main(["--random-weights"])
