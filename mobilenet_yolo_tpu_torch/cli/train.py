@@ -9,10 +9,12 @@ detector family, and NNI tuner params merge automatically when running
 inside an NNI trial (train.py:487-499 semantics via train/hpo.py).
 
 The run is on ``--device`` (default ``cuda``, which raises without a card;
-``cpu`` when asked). What the port does not have yet raises rather than
-being ignored: ``--backbone mbv3*`` and ``--slim-l1`` (ROADMAP Queue 1 item
-6), and ``--coordinator`` / ``--num-processes`` / ``--process-id`` or a
-``--mesh`` over more than one device (item 8). ``-o/--export`` is accepted
+``cpu`` when asked). ``--slim-l1`` / ``--slim-mode`` train with Network
+Slimming (``prune.py``; ``tools/prune.py`` cuts the result, and
+``--init-from <out>/params.npz`` with the cut's data yaml fine-tunes it).
+What the port does not have yet raises rather than being ignored:
+``--coordinator`` / ``--num-processes`` / ``--process-id`` or a ``--mesh``
+over more than one device (ROADMAP Queue 1 item 8). ``-o/--export`` is accepted
 and unused, as in JAX: export is ``tools/export.py`` (item 7). ``-j N``
 builds batches in N worker processes (``data/workers.py:WorkerLoader``,
 the port's ``GrainLoader``); ``--bf16`` runs the steps and predict under
@@ -124,11 +126,14 @@ def get_params(argv=None):
                              " activations instead of storing them")
     parser.add_argument("--slim-l1", default=0.0, type=float,
                         help="Network Slimming L1 strength on the prunable "
-                             "BatchNorm gammas; raises until the prune.py "
-                             "port (ROADMAP item 6)")
+                             "BatchNorm gammas (prune.py; 0 = off, 1e-4 "
+                             "typical); prune afterwards with tools/prune.py")
     parser.add_argument("--slim-mode", default="prox",
                         choices=["prox", "loss"],
-                        help="how --slim-l1 is applied (see --slim-l1)")
+                        help="prox (default): soft-threshold the gammas in "
+                             "Adam's metric after each step; loss: add the "
+                             "L1 term to the loss (measured to fail under "
+                             "AdamW, kept for the record; prune.py)")
     parser.add_argument("--device", default="cuda",
                         help="cuda (the default; raises without a card) or cpu")
     return parser.parse_args(argv)

@@ -15,6 +15,9 @@ the leaves). The port's modules carry the flax module names, so a flax path
 * every BN's ``num_batches_tracked`` is the one key the converter fills
   itself (zero), and the load is ``strict=True``.
 
+``state_dict_to_flax`` is the inverse, for the port's weights written in
+the JAX package's ``.npz`` format (``tools/prune.py``).
+
 ``tools/convert_torch.py`` stays the route to and from the upstream
 reference's own key layout; this module serves the port only.
 """
@@ -80,3 +83,35 @@ def load_flax_variables(module: nn.Module, variables: Mapping) -> nn.Module:
             state[key] = torch.zeros((), dtype=torch.long)
     module.load_state_dict(state, strict=True)
     return module
+
+
+def state_dict_to_flax(state: Mapping[str, torch.Tensor]) -> dict:
+    """A port ``state_dict`` as the JAX package's ``{"params",
+    "batch_stats"}`` numpy trees: the inverse of ``flax_to_state_dict``.
+    A ``weight`` beside a ``running_mean`` is a BatchNorm ``scale``, any
+    other ``weight`` a conv ``kernel`` (OIHW -> HWIO); ``num_batches_tracked``
+    has no flax counterpart and is dropped."""
+    keys = set(state)
+    params: dict = {}
+    batch_stats: dict = {}
+    for key, value in state.items():
+        *path, leaf = key.split(".")
+        arr = value.detach().cpu().numpy().copy()  # not a view of the module's weights
+        if leaf == "num_batches_tracked":
+            continue
+        if leaf in ("running_mean", "running_var"):
+            tree, name = batch_stats, leaf[len("running_"):]
+        elif leaf == "weight":
+            is_bn = ".".join(path + ["running_mean"]) in keys
+            tree, name = params, "scale" if is_bn else "kernel"
+            if arr.ndim == 4:
+                arr = arr.transpose(2, 3, 1, 0)
+        elif leaf == "bias":
+            tree, name = params, "bias"
+        else:
+            raise KeyError(f"no flax counterpart for torch key {key!r}")
+        node = tree
+        for part in path:
+            node = node.setdefault(part, {})
+        node[name] = np.ascontiguousarray(arr)
+    return {"params": params, "batch_stats": batch_stats}

@@ -1,13 +1,15 @@
 """Conv building blocks of MobileNetV2-YOLO (torch, NCHW modules).
 
-Port of ``mobilenet_yolo_tpu/models/layers.py:35-59`` (activations),
-``:62-124`` (``ConvBNAct``, ``InvertedResidual``) and ``:180-259``
-(``Connect``, ``DepthwiseConvolution``, ``HeadStack``,
+Port of ``mobilenet_yolo_tpu/models/layers.py:35-59`` (activations, with
+``hswish`` and ``hsigmoid``), ``:62-124`` (``ConvBNAct``,
+``InvertedResidual``), ``:127-177`` (``SEModule``, ``MBv3Block``) and
+``:180-259`` (``Connect``, ``DepthwiseConvolution``, ``HeadStack``,
 ``upsample_nearest2x``, ``part_add``, ``make_divisible``).
 
 Submodules carry the flax names (``conv``, ``bn``, ``expand``,
-``depthwise``, ``project``, ``dw``, ``pw``, ``pw1``, ``pw2``, ``out``), so a
-state_dict key reads like the flax variable path (``convert.py``).
+``depthwise``, ``project``, ``se``, ``fc1``, ``fc2``, ``shortcut``, ``dw``,
+``pw``, ``pw1``, ``pw2``, ``out``), so a state_dict key reads like the flax
+variable path (``convert.py``).
 
 Flax infers input widths at trace time; torch needs them at construction,
 so every block takes ``in_features``. Flax pads by the integer
@@ -38,6 +40,18 @@ def relu6(x: torch.Tensor) -> torch.Tensor:
     return F.relu6(x)
 
 
+def hswish(x: torch.Tensor) -> torch.Tensor:
+    """x * relu6(x + 3) / 6 in the JAX package's order of operations
+    (``layers.py:39``): the product first, then the multiply by 1/6, which
+    rounds otherwise than ``F.hardswish``'s division."""
+    return x * relu6(x + 3.0) * (1.0 / 6.0)
+
+
+def hsigmoid(x: torch.Tensor) -> torch.Tensor:
+    """relu6(x + 3) / 6 as ``layers.py:44`` computes it."""
+    return relu6(x + 3.0) * (1.0 / 6.0)
+
+
 def leaky_relu(x: torch.Tensor) -> torch.Tensor:
     return F.leaky_relu(x, negative_slope=0.1)
 
@@ -46,6 +60,7 @@ ACTIVATIONS: dict[str, Callable[[torch.Tensor], torch.Tensor]] = {
     "relu6": relu6,
     "relu": F.relu,
     "leaky": leaky_relu,
+    "hswish": hswish,
     "none": lambda x: x,
 }
 
@@ -61,6 +76,11 @@ class BatchNorm2d(nn.BatchNorm2d):
     unbiased`` into ``(1-m) old + m biased`` for any momentum ``m``: two
     elementwise launches per layer and step. The state-dict keys are
     torch's, so ``convert.py`` and ``strict=True`` loads are unchanged.
+
+    One value per channel in train mode (``SEModule``'s pooled tensor at
+    batch 1), where torch raises, normalises as flax does: the biased
+    variance is 0, the output is the BN bias, and the running variance
+    moves toward 0.
     """
 
     # set by ``rematerialized`` while the backward recomputes this layer
@@ -68,8 +88,10 @@ class BatchNorm2d(nn.BatchNorm2d):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         n = x.numel() // x.shape[1]
-        if not (self.training and self.track_running_stats) or n < 2:
+        if not (self.training and self.track_running_stats) or n < 1:
             return super().forward(x)
+        if n == 1:
+            return self._single_value(x)
         if self.recomputing:
             # normalise with the batch statistics as the first pass did; the
             # same op on copies of the buffers, so the recompute saves what
@@ -82,6 +104,23 @@ class BatchNorm2d(nn.BatchNorm2d):
         # a new buffer, not an in-place edit: autograd saved this one
         with torch.no_grad():
             self.running_var = self.running_var * ((n - 1) / n)
+        return out
+
+    def _single_value(self, x: torch.Tensor) -> torch.Tensor:
+        shape = (1, -1, 1, 1)
+        mean = x.mean(dim=(0, 2, 3))
+        centred = x - mean.reshape(shape)
+        var = (centred * centred).mean(dim=(0, 2, 3))
+        out = (centred * torch.rsqrt(var + self.eps).reshape(shape) * self.weight.reshape(shape)
+               + self.bias.reshape(shape))
+        if not self.recomputing:
+            with torch.no_grad():
+                self.num_batches_tracked.add_(1)
+                # momentum None is torch's cumulative average
+                m = (self.momentum if self.momentum is not None
+                     else 1.0 / float(self.num_batches_tracked))
+                self.running_mean.mul_(1.0 - m).add_(mean.to(self.running_mean.dtype), alpha=m)
+                self.running_var.mul_(1.0 - m).add_(var.to(self.running_var.dtype), alpha=m)
         return out
 
 
@@ -196,6 +235,57 @@ class InvertedResidual(nn.Module):
         y = x if self.expand is None else self.expand(x)
         y = self.project(self.depthwise(y))
         return x + y if self.identity else y
+
+
+class SEModule(nn.Module):
+    """Squeeze-excite with an hsigmoid gate (``layers.py:127-139``). Its
+    BatchNorms see the pooled (B, C, 1, 1) tensor: B values a channel."""
+
+    def __init__(self, features: int, reduction: int = 4, *, device=None, dtype=None,
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        kw = dict(device=device, dtype=dtype, generator=generator)
+        self.fc1 = ConvBNAct(features, features // reduction, 1, act="relu", **kw)
+        self.fc2 = ConvBNAct(features // reduction, features, 1, act="none", **kw)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        s = x.mean(dim=(2, 3), keepdim=True)
+        return x * hsigmoid(self.fc2(self.fc1(s)))
+
+
+class MBv3Block(nn.Module):
+    """MobileNetV3 bneck (``layers.py:142-177``): expand, depthwise
+    (``kernel`` 3 or 5), project, an optional ``SEModule`` on the project's
+    output, and the reference's shortcut at stride 1: the input itself, or a
+    1x1 conv-BN ``shortcut`` where the width changes.
+
+    ``hidden_features`` overrides the expansion width (default ``expand``),
+    the seam channel pruning uses; the SE gates the project output, so a
+    hidden cut leaves it alone.
+    """
+
+    def __init__(self, in_features: int, kernel: int, expand: int, features: int, act: str,
+                 use_se: bool, stride: int, hidden_features: int | None = None, *,
+                 device=None, dtype=None, generator: torch.Generator | None = None):
+        super().__init__()
+        kw = dict(device=device, dtype=dtype, generator=generator)
+        hidden = hidden_features or expand
+        self.expand = ConvBNAct(in_features, hidden, 1, act=act, **kw)
+        self.depthwise = ConvBNAct(hidden, hidden, kernel, stride=stride, depthwise=True,
+                                   act=act, **kw)
+        self.project = ConvBNAct(hidden, features, 1, act="none", **kw)
+        self.se = SEModule(features, **kw) if use_se else None
+        self.residual = stride == 1
+        self.shortcut = (ConvBNAct(in_features, features, 1, act="none", **kw)
+                         if self.residual and in_features != features else None)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = self.project(self.depthwise(self.expand(x)))
+        if self.se is not None:
+            y = self.se(y)
+        if self.residual:
+            y = y + (x if self.shortcut is None else self.shortcut(x))
+        return y
 
 
 class Connect(nn.Module):

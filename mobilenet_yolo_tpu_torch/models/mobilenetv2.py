@@ -11,7 +11,10 @@ mode, its stem and blocks through the fused CUDA kernels
 ``fused_inverted_residual_s2`` and the others through
 ``fused_inverted_residual`` (residual where the block is an identity).
 That is 1 + 4 + 12 = 17 launches per forward at the MobileNetV2 widths.
-``head_conv`` stays a cuDNN conv with the folded bias.
+``head_conv`` stays a cuDNN conv with the folded bias. A pruned block's
+hidden width (any width ``prune.plan_prune`` emits, odd ones too) reaches
+the kernels zero-padded to a multiple of 8, which keeps their 16-byte
+copies and is exact (``_block_weights``).
 
 ``remat=True`` (``config["remat"]`` through ``build_model``) recomputes each
 block's activations in the backward instead of storing them, as the JAX
@@ -24,6 +27,7 @@ folded backbone ignores it: it runs in eval mode only.
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from mobilenet_yolo_tpu_torch.kernels.fused_block import (
@@ -125,13 +129,25 @@ def _weight(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     return t.to(dtype).contiguous()
 
 
+# hidden widths reach the block kernels in multiples of this (16 bytes of bf16)
+HIDDEN_MULTIPLE = 8
+
+
 def _block_weights(block: InvertedResidual, dtype: torch.dtype) -> tuple:
     """A folded block's weights in the kernels' layout: w1 (Cin, Ch), b1,
-    wdw (3, 3, Ch), bdw, w2 (Ch, Cout), b2."""
+    wdw (3, 3, Ch), bdw, w2 (Ch, Cout), b2, with Ch zero-padded to a
+    multiple of ``HIDDEN_MULTIPLE``. The padding is exact: a padded hidden
+    channel is relu6(0) = 0 after the expand and after the depthwise, and
+    meets zero rows of w2."""
     if block.expand is None:
         raise ValueError("the fused blocks need an expand conv (expand ratio > 1)")
-    return (_weight(block.expand.conv.weight[:, :, 0, 0].t(), dtype), block.expand.bn.bias,
-            *_block_weights_tail(block, dtype))
+    w1, b1 = block.expand.conv.weight[:, :, 0, 0].t(), block.expand.bn.bias
+    wdw, bdw, w2, b2 = _block_weights_tail(block, dtype)
+    pad = -w1.shape[1] % HIDDEN_MULTIPLE
+    if pad:
+        w1, b1, wdw, bdw = (F.pad(t, (0, pad)) for t in (w1, b1, wdw, bdw))
+        w2 = F.pad(w2, (0, 0, 0, pad))
+    return _weight(w1, dtype), b1, wdw, bdw, w2, b2
 
 
 def _stem_weights(stem: ConvBNAct, block0: InvertedResidual, dtype: torch.dtype) -> tuple:

@@ -2,7 +2,8 @@
 
 Ports of the JAX package's ``tools/``: ``bench_train`` (the training split),
 ``bench_geometry`` (the device-geometry step against the plain step),
-``probe_stem`` (the cuDNN stem formulations), ``probe_stem_cuda`` (the
+``probe_stem`` (the cuDNN stem formulations), ``prune`` (Network Slimming:
+plan, slice and write a pruned model), ``probe_stem_cuda`` (the
 staged stem roofline kernel) and ``probe_aug_kernels`` (the augmentation
 kernels against their plain twins; ``--bench`` times their launches
 apart, ``--traffic`` per slot class); ``probe_fused_tiles``, the fused

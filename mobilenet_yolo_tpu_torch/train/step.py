@@ -9,8 +9,13 @@ geometric compose), through the hand-written kernels or their plain ops.
 bf16 (``dtype=torch.bfloat16``) is ``torch.autocast`` around the forward;
 the heads are cast to f32 and the loss is computed in f32, as the JAX step
 does under a bf16 model (``step.py:145-146``). The ``mesh`` arguments wait
-for the parallelism port; Network Slimming (``slim_l1``) waits for the
-``prune.py`` port and raises until then.
+for the parallelism port.
+
+Network Slimming (``slim_l1`` in the config, ``step.py:32-62``):
+``slim_mode: loss`` adds ``slim_l1 * prune.slim_penalty`` to the train-mode
+loss and to ``metrics["loss"]``; ``slim_mode: prox`` (the default) applies
+``prune.slim_prox_update`` after the optimizer step and before the EMA
+update, in the plain and the geometry step alike.
 """
 
 from __future__ import annotations
@@ -31,6 +36,7 @@ from mobilenet_yolo_tpu_torch.ops.device_augment import (
     slot_noise,
 )
 from mobilenet_yolo_tpu_torch.ops.losses import seg_loss, yolo_head_loss
+from mobilenet_yolo_tpu_torch.prune import slim_penalty, slim_prox_update
 from mobilenet_yolo_tpu_torch.train.state import TrainState
 
 HEAD_KEYS = ("out0", "out1")
@@ -40,12 +46,14 @@ GEOMETRY_BATCH_KEYS = ("slots", "src_rect", "dst_rect", "fill_rect", "fill_color
 FUSED_AUG_MODES = (None, True, "split", False)
 
 
-def _refuse_slim(config: dict) -> None:
-    """Network Slimming (``step.py:32-62``) needs ``prune.py``, which is
-    not ported yet; a config asking for it is refused, never ignored."""
-    if float(config.get("slim_l1") or 0.0) > 0.0:
-        raise NotImplementedError("slim_l1 > 0 needs the prune.py port "
-                                  "(ROADMAP.md, Queue 1: prune.py and slim prox)")
+def _slim_cfg(config: dict) -> tuple[float, str]:
+    """(lambda, mode) of the Network Slimming config (``step.py:32-41``):
+    mode "prox" (the default) or "loss"; any other mode raises."""
+    lam = float(config.get("slim_l1") or 0.0)
+    mode = str(config.get("slim_mode") or "prox")
+    if mode not in ("prox", "loss"):
+        raise ValueError(f"slim_mode must be 'prox' or 'loss', got {mode!r}")
+    return lam, mode
 
 
 def _to_device(arr: np.ndarray, device: torch.device, dtype=None) -> torch.Tensor:
@@ -66,9 +74,12 @@ def make_loss_fn(model: torch.nn.Module, config: dict, segmentation: bool = Fals
     ``dtype`` bf16 or fp16 runs the forward under ``torch.autocast``.
     ``train=True`` puts the model in train mode, so the forward uses batch
     statistics and updates the running ones; ``train=False`` in eval mode.
-    The loss is f32; the metrics carry no gradient.
+    The loss is f32; the metrics carry no gradient. With ``slim_mode:
+    loss`` the train-mode loss carries ``slim_l1 * slim_penalty(model)``.
     """
-    _refuse_slim(config)
+    slim_l1, slim_mode = _slim_cfg(config)
+    if slim_mode != "loss":
+        slim_l1 = 0.0
     yolo_cfg = config["yolo"]
     anchors_px = np.asarray(yolo_cfg["anchors"], np.float32)
     masks = [list(m) for m in yolo_cfg["mask"]]
@@ -112,6 +123,8 @@ def make_loss_fn(model: torch.nn.Module, config: dict, segmentation: bool = Fals
             total = total + sl
             metrics["seg_obj"] = s_obj
             metrics["seg_no_obj"] = s_no_obj
+        if slim_l1 and train:
+            total = total + slim_l1 * slim_penalty(model)
         metrics["loss"] = total.detach()
         return total, metrics
 
@@ -139,15 +152,18 @@ def _ema_update(state: TrainState, ema_decay: float | None, ema_ramp: float = 20
 
 
 def _update(state: TrainState, model: torch.nn.Module, loss_fn: Callable, images, gt, n_gt,
-            seg_maps, ema_decay, ema_ramp):
-    """One optimizer step on ``loss_fn``; the gradients stay on the
-    parameters until the next step."""
+            seg_maps, ema_decay, ema_ramp, slim_prox: float):
+    """One optimizer step on ``loss_fn``, then the prox shrink with strength
+    ``slim_prox`` (0 = off), then the EMA, which sees the shrunk
+    parameters; the gradients stay on the parameters until the next step."""
     if state.model is not model:
         raise ValueError("the state holds another model than the step was built for")
     state.optimizer.zero_grad(set_to_none=True)
     loss, metrics = loss_fn(images, gt, n_gt, seg_maps)
     loss.backward()
     state.optimizer.step()
+    if slim_prox:
+        slim_prox_update(model, state.optimizer, slim_prox)
     _ema_update(state, ema_decay, ema_ramp)
     return state, metrics
 
@@ -166,6 +182,7 @@ def make_train_step(model: torch.nn.Module, config: dict, segmentation: bool = F
     if pixel_aug and not normalize:
         raise ValueError("pixel_aug requires normalize=True (raw images)")
     loss_fn = make_loss_fn(model, config, segmentation, normalize=normalize, dtype=dtype)
+    slim_prox = _prox_lambda(config)
     n_extra = int(segmentation) + 2 * int(pixel_aug)
 
     def step(state: TrainState, images, gt, n_gt, *extra):
@@ -178,9 +195,16 @@ def make_train_step(model: torch.nn.Module, config: dict, segmentation: bool = F
             jitter_op, jitter_factor = extra[-2:]
             images = planned_color_jitter(images, jitter_op, jitter_factor,
                                           dtype=dtype or torch.float32)
-        return _update(state, model, loss_fn, images, gt, n_gt, seg_maps, ema_decay, ema_ramp)
+        return _update(state, model, loss_fn, images, gt, n_gt, seg_maps, ema_decay, ema_ramp,
+                       slim_prox)
 
     return step
+
+
+def _prox_lambda(config: dict) -> float:
+    """The prox shrink's strength: ``slim_l1`` under ``slim_mode: prox``, else 0."""
+    lam, mode = _slim_cfg(config)
+    return lam if mode == "prox" else 0.0
 
 
 def make_eval_step(model: torch.nn.Module, config: dict, segmentation: bool = False,
@@ -256,6 +280,7 @@ def make_geometry_train_step(model: torch.nn.Module, config: dict, segmentation:
         raise ValueError(f"fused_aug must be one of {FUSED_AUG_MODES}, got {fused_aug!r}")
     loss_fn = make_loss_fn(model, config, segmentation=segmentation, normalize=True,
                            dtype=dtype)
+    slim_prox = _prox_lambda(config)
     seg_classes = int(config.get("seg", {}).get("num_classes", 0))
     aug_dtype = dtype or torch.float32
     n_geom = len(GEOMETRY_BATCH_KEYS) + 2 * int(segmentation)
@@ -275,6 +300,7 @@ def make_geometry_train_step(model: torch.nn.Module, config: dict, segmentation:
             src_rect, dst_rect, flip = geom[1], geom[2], geom[6]
             seg_maps = seg_compose(seg_slots, src_rect, dst_rect, flip, seg_active,
                                    (out_hw[0] // 16, out_hw[1] // 16), seg_classes)
-        return _update(state, model, loss_fn, images, gt, n_gt, seg_maps, ema_decay, ema_ramp)
+        return _update(state, model, loss_fn, images, gt, n_gt, seg_maps, ema_decay, ema_ramp,
+                       slim_prox)
 
     return step

@@ -14,6 +14,7 @@ The scan is boolean logic, so the NMS kernel must equal its twin bit for
 bit; the other kernels' tolerances are stated beside them.
 """
 
+import copy
 import subprocess
 import sys
 from pathlib import Path
@@ -1079,3 +1080,154 @@ def test_entry_points_raise_without_a_card(cuda, tmp_path, monkeypatch):
         cli_train.main(cli_train.get_params(["--synthetic", "-c", str(tmp_path / "ck")]))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         cli_eval.main(["--random-weights"])
+
+
+# ------------------------------------- pruned widths, MBv3 and slimming
+
+
+def _random_plan(round_to: int, seed: int) -> dict:
+    """The ``prune:`` block of a half cut of the VOC MBv2 along random
+    |gamma| (``prune.plan_prune``): hidden widths that are multiples of
+    ``round_to``, odd ones among them with ``round_to`` 1."""
+    from mobilenet_yolo_tpu_torch import prune
+
+    state = build_model(VOC, device="cpu", generator=torch.Generator().manual_seed(seed)
+                        ).state_dict()
+    rng = np.random.default_rng(seed)
+    for site in prune.prunable_gammas(state):
+        key = prune._gamma_key(site)
+        state[key] = torch.from_numpy(rng.uniform(0.0, 1.0, state[key].numel())).float()
+    _, cfg = prune.apply_prune(state, prune.plan_prune(state, 0.5, round_to=round_to))
+    return cfg
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("round_to", [8, 1])
+def test_fused_block_kernels_at_a_pruned_plans_widths(cuda, round_to, dtype):
+    """Kernels 2-3 against their twins at every block shape of a pruned
+    VOC backbone at 352x352: hidden widths off every 24- and 48-channel
+    chunk, and odd ones (``--round-to 1``), which the wrappers take as
+    they are (element copies)."""
+    cfg = _random_plan(round_to, seed=round_to)
+    widths = [w for w in cfg["backbone_hidden"] if w]
+    assert any(w % 48 for w in widths) and (round_to == 8 or any(w % 2 for w in widths))
+    backbone = build_model(dict(VOC, prune=cfg), device="cpu").backbone
+    for names, kernel, x_shape, ch, cout, residual in block_shapes(backbone, 2, 352)[1:]:
+        args = _fused_args(ch + cout, *x_shape, ch, cout, dtype, cuda)
+        wrapper = getattr(fb, kernel)
+        stride = 2 if kernel.endswith("s2") else 1
+        before = wrapper.launches
+        got = wrapper(*args, residual=residual) if stride == 1 else wrapper(*args)
+        torch.cuda.synchronize()
+        assert wrapper.launches == before + 1, names
+        want = fb.inverted_residual_reference(*args, residual=residual, stride=stride)
+        _assert_fused_close(got, want, dtype)
+
+
+@pytest.mark.parametrize("dtype", [None, torch.bfloat16])
+def test_folded_odd_width_plan_serves_through_the_fused_kernels(cuda, dtype):
+    """A ``--round-to 1`` plan folded: its odd hidden widths reach the
+    kernels zero-padded to a multiple of 8 (exact), every block launches
+    its kernel, and the folded heads match the unfolded float32 heads on
+    the init weights (float32 1e-4, bf16 5e-2 relative to the largest, as
+    ``chip_smoke.py``'s INIT_FOLD_CASES)."""
+    cfg = dict(VOC, prune=_random_plan(1, seed=5))
+    model = build_model(cfg, generator=torch.Generator().manual_seed(6)).eval()
+    model.to(memory_format=torch.channels_last)
+    folded = fold_batchnorm(model)
+    x = torch.randn((2, 3, 352, 352), device=cuda).to(memory_format=torch.channels_last)
+    with torch.no_grad():
+        want = model(x)
+        before = {k: getattr(fb, k).launches for k in ("fused_stem_block0",
+                                                       "fused_inverted_residual_s2",
+                                                       "fused_inverted_residual")}
+        with torch.autocast("cuda", dtype=dtype or torch.float32, enabled=dtype is not None):
+            got = folded(x)
+        torch.cuda.synchronize()
+    launched = {k: getattr(fb, k).launches - n for k, n in before.items()}
+    assert launched == {"fused_stem_block0": 1, "fused_inverted_residual_s2": 4,
+                        "fused_inverted_residual": 12}
+    tol = 1e-4 if dtype is None else 5e-2
+    for key in want:
+        err = float((got[key].float() - want[key]).abs().max() / want[key].abs().max())
+        assert err <= tol, (key, err)
+
+
+@pytest.mark.parametrize("backbone", ["mbv3", "mbv3_macc"])
+def test_mbv3_predict_cuda_matches_cpu(cuda, backbone):
+    """MBv3 through ``make_predict_fn`` (the NMS kernel on the card), card
+    vs CPU in float64 with calibrated BatchNorm statistics, as
+    ``test_predict_cuda_matches_cpu``: ``keep`` equal, kept detections
+    within rtol 1e-5, atol 1e-6 (decode in float32)."""
+    rng = np.random.default_rng(7)
+    model = build_model(VOC, backbone, device="cpu", generator=torch.Generator().manual_seed(0))
+    for bn in (m for m in model.modules() if isinstance(m, torch.nn.BatchNorm2d)):
+        bn.momentum = None
+    with torch.no_grad():
+        model.train()(torch.from_numpy(rng.normal(size=(2, 3, 96, 96)).astype(np.float32)))
+    model.eval().double()
+    images = torch.from_numpy(rng.normal(size=(2, 96, 96, 3)))
+    val_conf = torch.tensor(0.3)
+    dets_cpu, keep_cpu = make_predict_fn(model, VOC)(images, val_conf)
+    model.to(cuda)
+    before = suppress.launches
+    dets, keep = make_predict_fn(model, VOC)(images.to(cuda), val_conf.to(cuda))
+    torch.cuda.synchronize()
+    assert suppress.launches == before + 1
+    keep_cpu = keep_cpu.numpy()
+    assert 0 < keep_cpu.sum() < (dets_cpu[..., 4] > 0.3).sum().item()
+    np.testing.assert_array_equal(keep.cpu().numpy(), keep_cpu)
+    np.testing.assert_allclose(dets.cpu().numpy()[keep_cpu], dets_cpu.numpy()[keep_cpu],
+                               atol=1e-6, rtol=1e-5)
+
+
+SLIM_CFG = {"iou_weighting": 0.02, "slim_l1": 1e-2, "slim_mode": "prox",
+            "yolo": {"num_classes": 3, "num_anchors": 3, "ignore_thresh": [0.6, 0.55],
+                     "iou_thresh": 0.55,
+                     "anchors": [[18, 22], [24, 24], [30, 28], [6, 8], [10, 12], [14, 10]],
+                     "mask": [[0, 1, 2], [3, 4, 5]]}}
+
+
+def test_prox_step_on_the_card_matches_the_cpu(cuda):
+    """Two ``make_train_step`` steps with ``slim_mode: prox`` on the
+    width-0.35 MBv2-YOLO in float64, card against CPU, a third of the
+    prunable gammas small enough to be shrunk to 0: the same gammas are 0
+    on both, and every gamma agrees within 1e-4 (the YOLO loss is float32,
+    whose reductions run in other orders on the card, and Adam's update
+    lr * m_hat / sqrt(v_hat) moves by a share of lr = 7e-4 where a gradient
+    is small against the largest; ``tests/test_torch_prune.py`` holds the
+    same bound against JAX)."""
+    from mobilenet_yolo_tpu_torch import prune
+    from mobilenet_yolo_tpu_torch.models.mbv2_yolo import MBv2YOLO
+    from mobilenet_yolo_tpu_torch.train import create_train_state, make_train_step
+
+    rng = np.random.default_rng(8)
+    cpu = MBv2YOLO(num_classes=3, width_mult=0.35, dtype=torch.float64,
+                   generator=torch.Generator().manual_seed(9))
+    state = cpu.state_dict()
+    keys = [prune._gamma_key(s) for s in prune.prunable_gammas(state)]
+    for key in keys:
+        small = torch.from_numpy(rng.random(state[key].numel()) < 1 / 3)
+        state[key][small] = 1e-4
+    card = copy.deepcopy(cpu).to(cuda)
+    x = rng.normal(0, 1, (4, 32, 32, 3))
+    gt = np.zeros((4, 6, 5))
+    gt[..., 0] = rng.integers(1, 4, (4, 6))
+    gt[..., 1:3] = rng.uniform(0.2, 0.8, (4, 6, 2))
+    gt[..., 3:5] = rng.uniform(0.1, 0.5, (4, 6, 2))
+    n_gt = np.asarray([2, 0, 3, 6], np.int32)
+    params = {}
+    for model, device in ((cpu, torch.device("cpu")), (card, cuda)):
+        step, st = make_train_step(model, SLIM_CFG), create_train_state(model)
+        args = [torch.from_numpy(a).to(device) for a in (x, gt, n_gt)]
+        for _ in range(2):
+            st, _ = step(st, *args)
+        named = dict(model.named_parameters())
+        params[device.type] = {k: named[k].detach().cpu() for k in keys}
+    zeros = 0
+    for key in keys:
+        want, got = params["cpu"][key], params["cuda"][key]
+        assert torch.equal(got == 0, want == 0), key
+        assert float((got - want).abs().max()) <= 1e-4, key
+        zeros += int((want == 0).sum())
+    assert zeros > 0

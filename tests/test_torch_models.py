@@ -167,9 +167,19 @@ def test_converter_maps_layout_and_loads_strict():
 
 
 @pytest.mark.parametrize("backbone", ["mbv3", "mbv3_macc"])
-def test_unported_backbones_raise(backbone):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model(load_yaml(VOC_CONFIG), backbone=backbone)
+def test_full_voc_mbv3_model_sizes(backbone):
+    """The full-width VOC MBv3 graphs have the JAX package's parameter
+    counts (flax trees from ``jax.eval_shape`` of the init: no compile)."""
+    import jax
+    from mobilenet_yolo_tpu.models import build_model as jax_build_model
+
+    cfg = load_yaml(VOC_CONFIG)
+    jm = jax_build_model(cfg, backbone)
+    shapes = jax.eval_shape(lambda: jm.init(jax.random.PRNGKey(0),
+                                            np.zeros((1, 64, 64, 3), np.float32), train=False))
+    want = sum(int(np.prod(a.shape)) for a in jax.tree_util.tree_leaves(shapes["params"]))
+    model = build_model(cfg, backbone=backbone, device="cpu")
+    assert sum(p.numel() for p in model.parameters()) == want
 
 
 # ---------------------------------------------------------------- remat

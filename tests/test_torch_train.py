@@ -325,11 +325,18 @@ def test_optimizer_decays_every_parameter():
     assert opt.param_groups[0]["betas"] == (0.9, 0.999) and opt.param_groups[0]["eps"] == 1e-8
 
 
-def test_slim_l1_is_refused():
-    cfg = dict(SMALL_YOLO_CONFIG, slim_l1=1e-4)
+def test_slim_mode_must_be_prox_or_loss():
+    """``slim_mode`` other than prox or loss raises JAX's ``ValueError``;
+    prox is the default, and ``slim_l1`` 0 turns slimming off."""
     model = MBv2YOLO(num_classes=3, width_mult=0.35)
-    with pytest.raises(NotImplementedError, match="prune.py"):
+    cfg = dict(SMALL_YOLO_CONFIG, slim_l1=1e-4, slim_mode="l2")
+    with pytest.raises(ValueError, match="slim_mode must be 'prox' or 'loss'") as port_err:
         make_train_step(model, cfg)
+    with pytest.raises(ValueError) as jax_err:
+        j_step._slim_cfg(cfg)
+    assert str(port_err.value) == str(jax_err.value)
+    assert j_step._slim_cfg(dict(SMALL_YOLO_CONFIG, slim_l1=1e-4)) == (1e-4, "prox")
+    make_train_step(model, dict(SMALL_YOLO_CONFIG, slim_l1=1e-4))
 
 
 # ---------------------------------------------------------- whole steps

@@ -70,9 +70,31 @@ def test_cli_train_synthetic_runs_two_epochs(tmp_path, monkeypatch, capsys):
     assert "resumed from epoch 2" in capsys.readouterr().out
 
 
+@pytest.mark.parametrize("extra", [
+    ["--backbone", "mbv3"],
+    ["--backbone", "mbv3_macc", "--slim-l1", "1e-2"],
+    ["--slim-l1", "1e-2", "--slim-mode", "loss"],
+])
+def test_cli_train_takes_mbv3_and_slimming(tmp_path, monkeypatch, extra):
+    """``--backbone mbv3*`` and ``--slim-l1`` / ``--slim-mode`` pass through:
+    one synthetic step each, a finite loss in ``log.txt``, the checkpoint
+    holds the chosen graph, and prox mode (the default) leaves some
+    prunable gamma exactly 0 at this strength."""
+    monkeypatch.chdir(tmp_path)
+    argv = ["--synthetic", "--device", "cpu", "--epochs", "1", "--steps-per-epoch", "1",
+            "--batch-size", "2", "--img-size", "64", "-c", str(tmp_path / "ck"), *extra]
+    cli_train.main(cli_train.get_params(argv))
+    rows = (tmp_path / "ck" / "log.txt").read_text().strip().splitlines()
+    assert len(rows) == 2 and np.isfinite(float(rows[1].split("\t")[1]))
+    model = CheckpointManager(str(tmp_path / "ck")).restore_latest_raw()["model"]
+    backbone = extra[1] if extra[0] == "--backbone" else "mbv2"
+    assert any(k.startswith("backbone.bneck") for k in model) == backbone.startswith("mbv3")
+    if extra[-2:] == ["--slim-l1", "1e-2"]:
+        gamma = model["backbone.bneck2_1.expand.bn.weight"]
+        assert int((gamma == 0).sum()) > 0
+
+
 @pytest.mark.parametrize("extra,error,match", [
-    (["--backbone", "mbv3"], NotImplementedError, "mobilenetv3"),
-    (["--slim-l1", "1e-4"], NotImplementedError, "prune.py"),
     (["--coordinator", "localhost:1234"], NotImplementedError, "item 8"),
     (["--num-processes", "2"], NotImplementedError, "item 8"),
     (["--process-id", "0"], NotImplementedError, "item 8"),
