@@ -111,7 +111,33 @@ Phases, one output line each (any failure raises and exits non-zero):
               their twins on the cut's own weights and kernels 2-3 at the
               odd widths unpadded, and the cut's folded b128 time beside
               the VOC widths'.
-11. fused_kernels — the three fused-block kernels of the BatchNorm-folded
+11. quant    — int8 PTQ of the fit phase's checkpoint: ``python -m
+              mobilenet_yolo_tpu_torch.tools.quantize --eval`` as its own
+              process (calibration on 4 test batches of 8, the int8
+              artifact, the float vs int8 mAP A/B at the checkpoint's gate;
+              ``mAP_float`` within ``FIT_EVAL_MAP_TOL`` of the fit phase's
+              ``cli.eval`` at that gate,
+              ``mAP_int8`` above ``QUANT_MAP_SHARE`` of it, ``mAP_drop``
+              beside PERF.md's prediction); in this process the artifact
+              (``quant.load_int8``) served through ``QuantSim`` on the
+              64 test images (its mAP the tool's, kernel 1 once a batch)
+              and its heads card vs CPU in float64 on 4 images
+              (``QUANT_F64_REL_TOL``).
+12. export   — ``python -m mobilenet_yolo_tpu_torch.tools.export --what
+              aot`` of the same checkpoint at batch 8, 352x352, unfolded
+              and ``--fold-bn``, each its own process; a fresh process
+              (torch and the kernels package alone) loads each ``.pt2`` and
+              serves the 64 test images: ``keep`` equal to the eager
+              predict's, ``dets`` within ``EXPORT_DETS_TOL`` (else the first
+              ``myt`` op that differs is named), kernel 1 once a batch and
+              the folded program's 1 + 4 + 12 fused launches; export
+              seconds, ``.pt2`` bytes, load seconds, the loaded b8 ms beside
+              eager; a launch's host time through the wrapper, the op and
+              the bare ctypes call. ``--what npz`` and ``tools.convert_torch
+              --reverse`` of the checkpoint directory converted back by
+              ``--torch`` (beside the exports), served through
+              ``cli/infer.py``'s loader with equal detections.
+13. fused_kernels — the three fused-block kernels of the BatchNorm-folded
               forward (``fused_stem_block0``, ``fused_inverted_residual_s2``,
               ``fused_inverted_residual``; all on the tensor cores, float32
               in three TF32 passes) against their cuDNN twins, TF32 off, in
@@ -121,14 +147,14 @@ Phases, one output line each (any failure raises and exits non-zero):
               part-full), an unaligned width and odd output widths; and
               the float32 block kernel (block 16's shape) and stem kernel
               (its b128 352x352 shape) against the float64 twin.
-12. serve_folded — the same VOC model folded (``fold_batchnorm``) and served
+14. serve_folded — the same VOC model folded (``fold_batchnorm``) and served
               through ``make_predict_fn``: batch 1 and 128 at 352x352 in
               float32, uint8 normalize and bf16. Checks each request
               launched the stem kernel once, the stride-2 kernel 4 times and
               the stride-1 kernel 12 times, and that the folded model's
               heads match the unfolded model's (init weights in float32 and
               bf16, served weights in float32).
-13. stem_probe — the staged stem roofline kernel (``stem_probe``, stages a,
+15. stem_probe — the staged stem roofline kernel (``stem_probe``, stages a,
               b, c) driven through ``python -m
               mobilenet_yolo_tpu_torch.tools.probe_stem_cuda`` as a user runs
               it (a small check and the batch-128 352x352 bench, beside the
@@ -136,28 +162,28 @@ Phases, one output line each (any failure raises and exits non-zero):
               ``vs_stage_a``, c's time over a's); checks its launches,
               then each stage against its twin at a small shape, at S=18 (odd
               S/2) and at 128x352.
-14. tools   — the measurement tools at reduced iterations: ``bench_train`` at
+16. tools   — the measurement tools at reduced iterations: ``bench_train`` at
               batch 32 float32, plain and ``--remat`` (the backward adds time
               and at least doubles the FLOPs), one remat step against the
               plain step (same loss, same BatchNorm buffers, one count each),
               ``bench_geometry --stages --fused on`` at 416,
               ``probe_aug_kernels`` and ``probe_stem``; checks they launched
               the augmentation kernels.
-15. serve_pruned — the served slim50 plan (``configs/voc/slim50.yaml``,
+17. serve_pruned — the served slim50 plan (``configs/voc/slim50.yaml``,
               hidden widths off every 48- and 24-channel chunk) folded:
               heads against the unfolded model's (init weights float32 and
               bf16, calibrated float32), then a b128 request a dtype through
               ``make_predict_fn``, the fused kernels' launches counted.
-16. eval    — ``evaluate_detection`` on the card against the same run on
+18. eval    — ``evaluate_detection`` on the card against the same run on
               the CPU, float64, 23 images at batch 8 (a ragged tail), K=512:
               ``keep`` equal, mAP within 1e-9; the scan's launches counted.
-17. infer   — ``python -m mobilenet_yolo_tpu_torch.cli.infer`` as its own
+19. infer   — ``python -m mobilenet_yolo_tpu_torch.cli.infer`` as its own
               process (random weights): a directory of 5 PNGs at batch 2,
               then one image; a result file per input.
-18. bench   — ``python -m mobilenet_yolo_tpu_torch.bench`` as its own
+20. bench   — ``python -m mobilenet_yolo_tpu_torch.bench`` as its own
               process in 8 modes (``BENCH_MODES``): one JSON line each, a
               finite img/s, printed beside the card.
-19. timing  — CUDA-event throughput at batch 128 (f32, bf16, u8), unfolded
+21. timing  — CUDA-event throughput at batch 128 (f32, bf16, u8), unfolded
               and folded, batch-1 latency, the bench itself in each of its
               modes in this process (``bench.main``: ``in_process_bench_*``,
               beside its own-process number), the train step per mode and
@@ -184,7 +210,9 @@ loader path (``loader_launches``), their worst error on its batches
 (``loader_max_abs_err``) and their times on a loader batch at each bucket
 beside the twin's and the bound (``loader_buckets``), the launches of the
 fit phase's in-process part (``fit_launches``, kernels 1-4 and 6), those of
-the mbv3 and slim phases (``mbv3_launches``, ``slim_launches``), and, for
+the mbv3 and slim phases (``mbv3_launches``, ``slim_launches``), of the
+quant phase's in-process int8 graph and of the export phase's fresh
+serving process (``quant_launches``, ``export_launches``), and, for
 the three fused kernels, the float32 twins' kernels alone per b128 predict
 (``library_device_ms``, from
 ``torch.profiler``) and the float32 bound on CUDA cores (``fma_bound_ms``;
@@ -193,6 +221,9 @@ bf16 sums per b128 predict (``bf16_ms``, ``bf16_plain_ms``,
 ``bf16_library_ms``; ``bf16_library_device_ms``, the twins' kernels alone
 from ``torch.profiler``; ``bf16_bound_ms``) and worst bf16 error relative
 to the largest output (``bf16_max_rel_err``).
+
+A ``[time]`` line after each group of phases gives its wall seconds and
+the run's so far.
 
 The line before the last is the per-kernel JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX; yaml is read
@@ -221,9 +252,13 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from mobilenet_yolo_tpu_torch import bench, prune
+from torch.utils._python_dispatch import TorchDispatchMode
+
+from mobilenet_yolo_tpu_torch import bench, prune, quant
+from mobilenet_yolo_tpu_torch.cli.infer import load_variables
 from mobilenet_yolo_tpu_torch.config import (TRAIN_BUCKETS, VOC_CONFIG, default_data_yaml,
                                              load_config, load_yaml, prune_plan)
+from mobilenet_yolo_tpu_torch.convert import load_flax_variables
 from mobilenet_yolo_tpu_torch.data import augment as host_augment
 from mobilenet_yolo_tpu_torch.data import records
 from mobilenet_yolo_tpu_torch.data.dataset_builder import parse_voc_xml, to_yolo_labels
@@ -232,12 +267,14 @@ from mobilenet_yolo_tpu_torch.data.workers import WorkerLoader
 from mobilenet_yolo_tpu_torch.eval import evaluate_detection, make_predict_fn
 from mobilenet_yolo_tpu_torch.kernels import _build
 from mobilenet_yolo_tpu_torch.kernels import fused_block as fb
+from mobilenet_yolo_tpu_torch.kernels import nms_suppress as nms_kernel
 from mobilenet_yolo_tpu_torch.kernels.aug_compose import aug_compose, aug_compose_reference
 from mobilenet_yolo_tpu_torch.kernels.nms_suppress import suppress, suppress_reference
 from mobilenet_yolo_tpu_torch.kernels.slot_aug import slot_aug, slot_aug_reference
 from mobilenet_yolo_tpu_torch.kernels.stem_probe import STAGES, stem_probe, stem_probe_reference
 from mobilenet_yolo_tpu_torch.models import build_model, mobilenetv2
 from mobilenet_yolo_tpu_torch.models.bn_fold import calibrate_bn, fold_batchnorm
+from mobilenet_yolo_tpu_torch.ops import nms as nms_ops
 from mobilenet_yolo_tpu_torch.ops.nms import _suppression_matrix
 from mobilenet_yolo_tpu_torch.tools import (bench_geometry, bench_train, probe_aug_kernels,
                                             probe_nms, probe_stem, probe_stem_cuda)
@@ -250,7 +287,7 @@ from mobilenet_yolo_tpu_torch.train.loop import Trainer, TrainerConfig
 from mobilenet_yolo_tpu_torch.train.synthetic import random_program
 from mobilenet_yolo_tpu_torch.utils.profiling import (BF16_FLOPS, F32_FLOPS, HBM_BYTES_PER_S,
                                                       TF32_FLOPS, bound_ms, device_ms,
-                                                      kernel_ms_by_name)
+                                                      kernel_ms_by_name, request_ms)
 
 SEED = 0
 BATCH = 128
@@ -473,6 +510,82 @@ SLIM_CUT30_SHARE = 0.8
 # near the gate may flip with float32 rounding in another order
 SLIM_FOLD_MAP_TOL = 1e-3
 HEADS = ("out0", "out1")
+# the quant phase: the fit phase's checkpoint through the port's quantize
+# CLI (its own process): calibration on 4 test batches of 8, the float vs
+# int8 mAP A/B at the checkpoint's gate; the artifact then served in this
+# process through QuantSim (kernel 1 counted) and held card vs CPU
+QUANT_DIR = ROOT / "build" / "chip_smoke_quant"
+QUANT_BATCH = 8
+QUANT_CALIB_BATCHES = 4
+QUANT_IMAGES = 4
+# the int8 simulation's sanity bar, and PERF.md's prediction of the drop
+# (written before the first run)
+QUANT_MAP_SHARE = 0.5
+QUANT_PREDICTED_DROP = "0.00-0.04"
+# QuantSim heads, card vs CPU in float64 on the same artifact, relative to
+# the largest logit: float64 summation order, the grid snap in float32 on
+# both (a float64 value a few ulp away rounds to the same float32 but with
+# a chance of ~1e-8, and then must also sit on a grid boundary to flip)
+QUANT_F64_REL_TOL = 1e-6
+# the export phase: the port's export CLI (each its own process) writes the
+# fit checkpoint as .pt2 programs at batch 8, 352x352, unfolded and folded;
+# a fresh process loads each and serves the 64 test images; the npz export
+# and the reference converter's round trip are served by cli/infer's loader
+EXPORT_DIR = ROOT / "build" / "chip_smoke_export"
+EXPORT_BATCH = 8
+# loaded program vs the eager predict in this process, TF32 off on both: the
+# same kernels and convolutions on the same inputs
+EXPORT_DETS_TOL = 1e-5
+EXPORT_ITERS = 20
+EXPORT_PREDICTED = "loaded b8 within 15% of eager"
+EXPORTED_OPS = {"unfolded": {"nms_suppress": 1},
+                "folded": {"nms_suppress": 1, **FUSED_PER_REQUEST}}
+# the fresh serving process: the kernels package (which registers the
+# ops) and torch alone, as tools/export.py's last message says
+SERVE_PT2 = """
+import json, sys, time
+import numpy as np
+import torch
+import mobilenet_yolo_tpu_torch.kernels as kernels
+from mobilenet_yolo_tpu_torch.kernels import fused_block
+
+args = json.loads(sys.argv[1])
+torch.backends.cudnn.allow_tf32 = False
+torch.backends.cuda.matmul.allow_tf32 = False
+counters = {"nms_suppress": kernels.suppress,
+            "fused_stem_block0": fused_block.fused_stem_block0,
+            "fused_inverted_residual_s2": fused_block.fused_inverted_residual_s2,
+            "fused_inverted_residual": fused_block.fused_inverted_residual}
+images = torch.from_numpy(np.load(args["images"])).cuda()
+val_conf = torch.tensor(args["val_conf"], device="cuda")
+b, report = args["batch"], {}
+for name, path in args["programs"].items():
+    t0 = time.perf_counter()
+    program = torch.export.load(path).module()
+    load_s = time.perf_counter() - t0
+    for counter in counters.values():
+        counter.launches = 0
+    with torch.inference_mode():
+        outs = [program(images[i:i + b], val_conf) for i in range(0, len(images), b)]
+    torch.cuda.synchronize()
+    launches = {k: c.launches for k, c in counters.items()}
+    np.savez(args["out"][name], dets=torch.cat([o[0] for o in outs]).cpu().numpy(),
+             keep=torch.cat([o[1] for o in outs]).cpu().numpy())
+    with torch.inference_mode():
+        for _ in range(3):
+            program(images[:b], val_conf)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        for _ in range(args["iters"]):
+            program(images[:b], val_conf)
+        end.record()
+        torch.cuda.synchronize()
+    report[name] = {"load_s": load_s, "launches": launches,
+                    "b8_ms": start.elapsed_time(end) / args["iters"]}
+print(json.dumps(report))
+"""
 MASS_LINE = re.compile(r"hold ([0-9.]+)% of total \|gamma\| mass")
 
 
@@ -1150,7 +1263,8 @@ def phase_fit(device, smi: str) -> dict:
     through the eval and infer CLIs, then, in this process, evaluate the
     trained weights in float32, bf16 and folded (kernels 1-4) and time one
     ``Trainer.train_epoch`` fed by ``Loader`` against ``WorkerLoader``
-    (kernel 6). Returns the kernels' launches in this process."""
+    (kernel 6). Returns the kernels' launches in this process and the eval
+    CLI's result at the checkpoint's own gate."""
     t_phase = time.perf_counter()
     shutil.rmtree(FIT_DIR, ignore_errors=True)
     FIT_DIR.mkdir(parents=True)
@@ -1263,7 +1377,7 @@ def phase_fit(device, smi: str) -> dict:
     check(min(launches.values()) > 0, f"every kernel of the fit path launched: {launches}")
     report("fit", fit_launches=launches, phase_seconds=f"{time.perf_counter() - t_phase:.1f}",
            card=f"'{smi}'")
-    return launches
+    return launches, own
 
 
 def fed_epoch(phase: str, name: str, trainer: Trainer, mc: dict, data: dict, workers: int,
@@ -1677,6 +1791,340 @@ def phase_slim(device, smi: str) -> dict:
             times[f"{name}_{dt_name}_ms"] = f"{cuda_ms(lambda: f(x128, val_conf), iters=MBV3_ITERS):.3f}"
     report("timing", what=f"folded_predict_b{BATCH}", **times, tf32=False, card=f"'{smi}'")
     report("slim", slim_launches=launches, phase_seconds=f"{time.perf_counter() - t_phase:.1f}",
+           card=f"'{smi}'")
+    return launches
+
+
+def phase_quant(device, smi: str, fit_eval: dict) -> dict:
+    """The fit checkpoint through the port's quantize CLI (its own process):
+    calibration on the test shard, the int8 artifact, the float vs int8 mAP
+    A/B at the checkpoint's gate; ``mAP_float`` held to the fit phase's
+    ``cli.eval`` of the same checkpoint at that gate (``fit_eval``),
+    ``mAP_int8`` to the sanity bar. In this process the artifact is loaded
+    (``quant.load_int8``) and served through ``QuantSim`` on the card, kernel
+    1 counted, its mAP the tool's; and its heads held card vs CPU in
+    float64. Returns the kernels' launches on that path."""
+    t_phase = time.perf_counter()
+    shutil.rmtree(QUANT_DIR, ignore_errors=True)
+    QUANT_DIR.mkdir(parents=True)
+    data_yaml = str(DATA_DIR / "data.yaml")
+    data, cfg = load_yaml(data_yaml), load_config(data_yaml)
+    mc = cfg.model
+    gate = str(fit_eval["val_conf"])
+    artifact = QUANT_DIR / "int8.npz"
+    t0 = time.perf_counter()
+    out = run_module(
+        "mobilenet_yolo_tpu_torch.tools.quantize", "--checkpoint", str(FIT_DIR), "--data-yaml",
+        data_yaml, "--out", str(artifact), "--batch-size", str(QUANT_BATCH), "--calib-batches",
+        str(QUANT_CALIB_BATCHES), "--eval", "--val-conf", gate)
+    rep = json.loads(out[out.index("{"):])  # the report, printed last
+    tool_s = time.perf_counter() - t0
+    evaluated = fit_eval
+    report("quant", what="ab", seconds=f"{tool_s:.1f}", sites=rep["sites"],
+           int8_weights=rep["int8_weights"], total_params=rep["total_params"],
+           int8_fraction=rep["int8_fraction"], val_conf=gate,
+           mAP_float=f"{rep['mAP_float']:.6f}", cli_eval_mAP=f"{evaluated['mAP']:.6f}",
+           mAP_int8=f"{rep['mAP_int8']:.6f}", mAP_drop=f"{rep['mAP_drop']:.6f}",
+           predicted_drop=QUANT_PREDICTED_DROP, bar=f"mAP_int8 > {QUANT_MAP_SHARE} x mAP_float",
+           card=f"'{smi}'")
+    check(abs(rep["mAP_float"] - evaluated["mAP"]) <= FIT_EVAL_MAP_TOL,
+          f"the float arm's mAP {rep['mAP_float']} is cli.eval's {evaluated['mAP']}")
+    check(rep["mAP_int8"] > QUANT_MAP_SHARE * rep["mAP_float"],
+          f"int8 mAP {rep['mAP_int8']} > {QUANT_MAP_SHARE} x float {rep['mAP_float']}")
+
+    # the artifact in this process: the int8 graph served through kernel 1,
+    # with PyTorch's default cuDNN TF32 as in the tool's process
+    variables, scales = quant.load_int8(str(artifact))
+    check(len(scales) == rep["sites"], f"the artifact holds {rep['sites']} activation scales")
+    sim = quant.QuantSim(load_flax_variables(build_model(mc, device=device), variables), scales)
+    test = Loader(DetectionDataset(records.RecordReader(data["test_dataset_path"]["lmdb"]),
+                                   phase="test"), QUANT_BATCH, [[mc["img_w"], mc["img_h"]]],
+                  mc["normalize"]["mean"], mc["normalize"]["std"], shuffle=False,
+                  pad_final=False)
+    predict = make_predict_fn(sim, mc, top_k=FIT_TOP_K)
+    torch.backends.cudnn.allow_tf32 = True
+    for counted in LAUNCH_COUNTERS:
+        counted.launches = 0
+    res = evaluate_detection(predict, test, cfg.classes, float(gate), batch_size=QUANT_BATCH,
+                             device=device)
+    torch.cuda.synchronize()
+    launches = {name: c.launches for name, c in (("nms_suppress", suppress), *FUSED.items())}
+    torch.backends.cudnn.allow_tf32 = False
+    n_batches = -(-DATA_TEST // QUANT_BATCH)
+    check(launches == {"nms_suppress": n_batches, **{k: 0 for k in FUSED}},
+          f"the int8 graph: the scan once a batch, no fused block: {launches}")
+    check(abs(res["mAP"] - rep["mAP_int8"]) <= FIT_EVAL_MAP_TOL,
+          f"the loaded artifact's int8 mAP {res['mAP']} is the tool's {rep['mAP_int8']}")
+
+    # card vs CPU, float64, the same artifact and images
+    x = next(iter(test))["images"][:QUANT_IMAGES].astype(np.float64)
+    heads = []
+    for dev in (device, torch.device("cpu")):
+        model = load_flax_variables(build_model(mc, dtype=torch.float64, device=dev), variables)
+        with torch.inference_mode():
+            out = quant.QuantSim(model.eval(), scales)(
+                torch.from_numpy(x).to(dev).permute(0, 3, 1, 2))
+        heads.append({k: out[k].cpu() for k in HEADS})
+    f64_err = max(float((heads[0][k] - heads[1][k]).abs().max() / heads[1][k].abs().max())
+                  for k in HEADS)
+    report("quant", what="artifact", mAP_int8=f"{res['mAP']:.6f}", tool_mAP_int8=rep["mAP_int8"],
+           launches=launches, f64_heads_rel_err=f64_err, tol=QUANT_F64_REL_TOL,
+           images=QUANT_IMAGES, phase_seconds=f"{time.perf_counter() - t_phase:.1f}",
+           card=f"'{smi}'")
+    check(f64_err <= QUANT_F64_REL_TOL, f"QuantSim heads card vs CPU, float64: {f64_err}")
+    return launches
+
+
+def op_dispatch_us(device, n: int = 1000) -> dict:
+    """Host microseconds a kernel-2 launch at block 2's b1 shape takes
+    through the public wrapper (its checks and the registered op), the op
+    alone, and the bare ctypes launch that the op's CUDA implementation
+    makes, under ``inference_mode`` as ``make_predict_fn`` runs."""
+    g = torch.Generator().manual_seed(SEED)
+    args = [torch.randn(shape, generator=g).to(device)
+            for shape in ((1, 88, 88, 24), (24, 144), (144,), (3, 3, 144), (144,), (144, 24), (24,))]
+    calls = {"wrapper": lambda: fb.fused_inverted_residual(*args, residual=True),
+             "op": lambda: torch.ops.myt.fused_inverted_residual(*args, True),
+             "ctypes": lambda: fb._launch_block(*args, True, 1)}
+    out = {}
+    with torch.inference_mode():
+        for name, call in calls.items():
+            for _ in range(20):
+                call()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(n):
+                call()
+            out[f"block_{name}_us"] = f"{(time.perf_counter() - t0) / n * 1e6:.2f}"
+            torch.cuda.synchronize()
+    return out
+
+
+@contextlib.contextmanager
+def launches_past_the_ops():
+    """Kernels 1-4 reached as before they were registered ops: the
+    wrappers' checks, then the ops' CUDA implementations (the ctypes
+    launch and its counter) called directly, on the predict path."""
+    def block(x, w1, b1, wdw, bdw, w2, b2, residual=True):
+        fb._check_block("fused_inverted_residual", x, w1, b1, wdw, bdw, w2, b2, even=False)
+        return fb._block_s1_cuda(x, w1, b1, wdw, bdw, w2, b2, residual)
+
+    def block_s2(x, w1, b1, wdw, bdw, w2, b2):
+        fb._check_block("fused_inverted_residual_s2", x, w1, b1, wdw, bdw, w2, b2, even=True)
+        return fb._block_s2_cuda(x, w1, b1, wdw, bdw, w2, b2)
+
+    def scan(over, valid):
+        nms_kernel._check(over, valid)
+        return nms_kernel._nms_suppress_cuda(over, valid)
+
+    names = ((mobilenetv2, "fused_inverted_residual", block),
+             (mobilenetv2, "fused_inverted_residual_s2", block_s2),
+             (mobilenetv2, "fused_stem_block0", fb._stem_cuda), (nms_ops, "suppress", scan))
+    saved = [getattr(module, name) for module, name, _ in names]
+    for module, name, direct in names:
+        setattr(module, name, direct)
+    try:
+        yield
+    finally:
+        for (module, name, _), op in zip(names, saved):
+            setattr(module, name, op)
+
+
+def op_route_ms(device, rounds: int = 5) -> dict:
+    """``bench.py``'s folded bf16 request (its model, input and statistic:
+    the best of 2 runs of 32 requests) at b128 and b1, through the ops and
+    past them (``launches_past_the_ops``), alternating in this process for
+    ``rounds`` rounds; each side's ms a request in round order."""
+    out = {}
+    model = build_model(bench.BENCH_MODEL_CFG, device=device,
+                        generator=torch.Generator().manual_seed(0))
+    x = torch.from_numpy(np.random.default_rng(0).normal(0, 1, (BATCH, SIZE, SIZE, 3))
+                         .astype(np.float32)).to(device)
+    calibrate_bn(model, x)
+    predict = make_predict_fn(fold_batchnorm(model), bench.BENCH_MODEL_CFG,
+                              dtype=torch.bfloat16)
+    val_conf = torch.tensor(bench.VAL_CONF, device=device)
+    for batch in (BATCH, 1):
+        times = {"op": [], "past_op": []}
+        for _ in range(rounds):
+            for route, ctx in (("op", contextlib.nullcontext), ("past_op", launches_past_the_ops)):
+                with ctx():
+                    def run():
+                        return predict(x[:batch], val_conf)
+                    request_ms(run, device=device, iters=bench.WARMUP)
+                    times[route].append(min(request_ms(run, device=device, iters=bench.ITERS)
+                                            for _ in range(bench.RUNS)))
+        for route, ms in times.items():
+            out[f"b{batch}_{route}_ms"] = [round(t, 3) for t in ms]
+            out[f"b{batch}_{route}_median_ms"] = round(statistics.median(ms), 3)
+    return out
+
+
+class MytOpLog(TorchDispatchMode):
+    """The outputs of every registered ``myt`` op a run calls, in order."""
+
+    def __init__(self):
+        super().__init__()
+        self.calls: list[tuple[str, object]] = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        if str(func).startswith("myt."):
+            self.calls.append((str(func), out))
+        return out
+
+
+def diverging_op(*runs) -> str:
+    """The first ``myt`` op whose output differs between two runs (each a
+    function of no arguments), or that none does."""
+    logs = []
+    for run in runs:
+        with MytOpLog() as log:
+            run()
+        torch.cuda.synchronize()
+        logs.append(log.calls)
+    for i, ((name, a), (other, b)) in enumerate(zip(*logs)):
+        if name != other:
+            return f"call {i}: {name} in one run, {other} in the other"
+        if not torch.equal(a, b):
+            err = float((a.double() - b.double()).abs().max()) if a.is_floating_point() else "bool"
+            return f"call {i}: {name} differs ({err})"
+    return f"no myt op differs ({len(logs[0])} and {len(logs[1])} calls); an aten op does"
+
+
+def hold_export_plans(eager: dict, x: torch.Tensor, device) -> None:
+    """The tile plans of the exported folded program (batch ``len(x)``) held
+    to the plain versions, in float32 with TF32 off: each fused kernel
+    against its twin on seeded inputs at every block shape of the program,
+    and the trained folded heads against the unfolded float32 heads."""
+    backbone = eager["folded"].backbone
+    gen = torch.Generator(device=device).manual_seed(SEED + 5)
+    for blocks, kernel, x_shape, ch, cout, residual in block_shapes(backbone, len(x),
+                                                                     x.shape[1]):
+        args = fused_args(gen, kernel, x_shape, ch, cout, torch.float32, device)
+        got = run_fused(kernel, args, residual)
+        want = run_fused(kernel, args, residual, twin=True)
+        rel = float((got - want).abs().max()) / float(want.abs().max())
+        check(rel <= FUSED_F32_REL_TOL,
+              f"export: {kernel} {blocks} at {x_shape}: rel err {rel:.3g} <= {FUSED_F32_REL_TOL}")
+        report("export", what="plan_vs_twin", blocks=blocks, kernel=kernel, x=tuple(x_shape),
+               tile=tile_of(kernel, "f32", x_shape, ch, cout), rel_err=f"{rel:.3g}",
+               tol=FUSED_F32_REL_TOL)
+    hold_folded_heads("export", "fit", eager["folded"], x, head_logits(eager["unfolded"], x),
+                      [("f32", None, FOLD_F32_REL_TOL)])
+
+
+def phase_export(device, smi: str) -> dict:
+    """The fit checkpoint through the port's export CLI (each its own
+    process) as ``.pt2`` programs at batch 8, 352x352, unfolded and folded;
+    a fresh process (torch and the kernels package alone) loads each and
+    serves the 64 test images, counting the kernels; their outputs are held
+    to the eager predict in this process, and the b8 tile plans that the
+    folded program launches are held to the plain versions: each fused
+    kernel against its twin at the program's block shapes, and the folded
+    heads against the unfolded float32 heads. The ``--what npz`` export and
+    the reference converter's round trip (``--reverse`` of the checkpoint
+    directory, then ``--torch``) are served through ``cli/infer.py``'s
+    loader with the eager detections. Returns the fresh process's
+    launches."""
+    t_phase = time.perf_counter()
+    shutil.rmtree(EXPORT_DIR, ignore_errors=True)
+    EXPORT_DIR.mkdir(parents=True)
+    data_yaml = str(DATA_DIR / "data.yaml")
+    data, cfg = load_yaml(data_yaml), load_config(data_yaml)
+    mc = cfg.model
+    raw = CheckpointManager(str(FIT_DIR)).restore_latest_raw()
+    gate = float(raw["val_conf"])
+    programs = {}
+    for name, extra in (("unfolded", ()), ("folded", ("--fold-bn",))):
+        path = EXPORT_DIR / f"{name}.pt2"
+        t0 = time.perf_counter()
+        out = run_module("mobilenet_yolo_tpu_torch.tools.export", "--checkpoint", str(FIT_DIR),
+                         "--data-yaml", data_yaml, "--what", "aot", "--out", str(path),
+                         "--batch-size", str(EXPORT_BATCH), "--val-conf", str(gate), *extra)
+        check("torch.export.load(path).module()(images, val_conf)" in out,
+              f"the export tool says how to serve its program: {out[-500:]}")
+        programs[name] = (str(path), time.perf_counter() - t0, path.stat().st_size)
+    # the npz export and the converter's round trip, each its own process
+    npz, ref, back = EXPORT_DIR / "params.npz", EXPORT_DIR / "ref.pth.tar", EXPORT_DIR / "ref.npz"
+    run_module("mobilenet_yolo_tpu_torch.tools.export", "--checkpoint", str(FIT_DIR),
+               "--data-yaml", data_yaml, "--what", "npz", "--out", str(npz))
+    converted = run_module("mobilenet_yolo_tpu_torch.tools.convert_torch", "--reverse",
+                           "--params", str(FIT_DIR), "--out", str(ref))
+    run_module("mobilenet_yolo_tpu_torch.tools.convert_torch", "--torch", str(ref), "--out",
+               str(back))
+
+    test = Loader(DetectionDataset(records.RecordReader(data["test_dataset_path"]["lmdb"]),
+                                   phase="test"), EXPORT_BATCH, [[mc["img_w"], mc["img_h"]]],
+                  mc["normalize"]["mean"], mc["normalize"]["std"], shuffle=False,
+                  pad_final=False)
+    images = np.concatenate([batch["images"] for batch in test])
+    check(images.shape == (DATA_TEST, mc["img_h"], mc["img_w"], 3),
+          f"the test images: {images.shape}")
+    np.save(EXPORT_DIR / "images.npy", images)
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(p for p in (str(ROOT), env.get("PYTHONPATH")) if p)
+    args = {"images": str(EXPORT_DIR / "images.npy"), "val_conf": gate, "batch": EXPORT_BATCH,
+            "iters": EXPORT_ITERS, "programs": {k: v[0] for k, v in programs.items()},
+            "out": {k: str(EXPORT_DIR / f"{k}_served.npz") for k in programs}}
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", SERVE_PT2, json.dumps(args)], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=SUBPROCESS_TIMEOUT, check=False)
+    check(proc.returncode == 0, f"the fresh serving process exited {proc.returncode}:\n"
+                                f"{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
+    served = json.loads(proc.stdout.strip().splitlines()[-1])
+    serve_s = time.perf_counter() - t0
+
+    model = build_model(mc, device=device)
+    model.load_state_dict(served_state_dict(raw))
+    eager = {"unfolded": model, "folded": fold_batchnorm(model)}
+    x = torch.from_numpy(images).to(device)
+    val_conf = torch.tensor(gate, device=device)
+    n_batches = -(-DATA_TEST // EXPORT_BATCH)
+    launches = {}
+    eager_dets = {}
+    for name, (path, export_s, size) in programs.items():
+        predict = make_predict_fn(eager[name], mc)
+        outs = [predict(x[i:i + EXPORT_BATCH], val_conf) for i in range(0, DATA_TEST, EXPORT_BATCH)]
+        dets, keep = (torch.cat([o[j] for o in outs]).cpu() for j in (0, 1))
+        eager_dets[name] = dets
+        got = np.load(args["out"][name])
+        keep_equal = bool(np.array_equal(got["keep"], keep.numpy()))
+        dets_err = float(np.abs(got["dets"] - dets.numpy()).max())
+        if not keep_equal or dets_err > EXPORT_DETS_TOL:
+            program = torch.export.load(path).module()
+            where = diverging_op(lambda: predict(x[:EXPORT_BATCH], val_conf),
+                                 lambda: program(x[:EXPORT_BATCH], val_conf))
+            check(False, f"{name}: the loaded program's keep equal {keep_equal}, dets within "
+                         f"{dets_err} of eager (tol {EXPORT_DETS_TOL}): {where}")
+        want = {k: n_batches * n for k, n in EXPORTED_OPS[name].items()}
+        got_launches = {k: n for k, n in served[name]["launches"].items() if n}
+        check(got_launches == want, f"{name}: the loaded program launched {got_launches}, "
+                                    f"{want} for {n_batches} batches")
+        for k, n in served[name]["launches"].items():
+            launches[k] = launches.get(k, 0) + n
+        eager_ms = cuda_ms(lambda: predict(x[:EXPORT_BATCH], val_conf), iters=EXPORT_ITERS)
+        report("export", what=name, export_seconds=f"{export_s:.1f}", pt2_bytes=size,
+               load_seconds=f"{served[name]['load_s']:.3f}", launches=got_launches,
+               keep_equal=keep_equal, dets_max_abs_err=dets_err, tol=EXPORT_DETS_TOL,
+               kept=int(keep.sum()), loaded_b8_ms=f"{served[name]['b8_ms']:.3f}",
+               eager_b8_ms=f"{eager_ms:.3f}", predicted=EXPORT_PREDICTED, card=f"'{smi}'")
+
+    hold_export_plans(eager, x[:EXPORT_BATCH], device)
+    for name, weights in (("npz", npz), ("converted", back)):
+        predict = make_predict_fn(load_variables(build_model(mc, device=device), str(weights)),
+                                  mc)
+        dets = torch.cat([predict(x[i:i + EXPORT_BATCH], val_conf)[0]
+                          for i in range(0, DATA_TEST, EXPORT_BATCH)]).cpu()
+        err = float((dets - eager_dets["unfolded"]).abs().max())
+        report("export", what=f"{name}_served", weights=weights.name, dets_max_abs_err=err,
+               card=f"'{smi}'")
+        check(err == 0.0, f"{name}: the served detections equal the checkpoint's ({err})")
+    report("export", what="op_dispatch", **op_dispatch_us(device), card=f"'{smi}'")
+    report("export", what="op_route_bf16_folded", **op_route_ms(device), card=f"'{smi}'")
+    report("export", what="converter", line=converted.strip().splitlines()[0],
+           serve_process_seconds=f"{serve_s:.1f}",
+           export_launches=launches, phase_seconds=f"{time.perf_counter() - t_phase:.1f}",
            card=f"'{smi}'")
     return launches
 
@@ -2381,8 +2829,18 @@ def phase_timing(device, smi: str, state: dict) -> dict:
 
 
 def main() -> None:
+    t_run = t_lap = time.perf_counter()
+
+    def lap(phase: str) -> None:
+        """Each phase's wall seconds, the run's so far beside them."""
+        nonlocal t_lap
+        now = time.perf_counter()
+        report("time", step=phase, seconds=f"{now - t_lap:.1f}", total=f"{now - t_run:.1f}")
+        t_lap = now
+
     device, smi = phase_device()
     phase_build()
+    lap("build")
     max_err = {"nms_suppress": phase_kernel(device)}
     launches = {}
     launches["nms_suppress"], state = phase_serve(device)
@@ -2391,21 +2849,34 @@ def main() -> None:
     train_launches, state["train_runs"] = phase_train(device, batches)
     launches.update(train_launches)
     state["batches"] = batches
+    lap("kernel_serve_aug_train")
     loader_times = phase_data(device, smi)
+    lap("data")
     mbv3_launches = phase_mbv3(device, smi)
-    fit_launches = phase_fit(device, smi)
+    lap("mbv3")
+    fit_launches, fit_eval = phase_fit(device, smi)
+    lap("fit")
     slim_launches = phase_slim(device, smi)
+    lap("slim")
+    quant_launches = phase_quant(device, smi, fit_eval)
+    lap("quant")
+    export_launches = phase_export(device, smi)
+    lap("export")
     fused_errs, bf16_errs, state["fused_cases"] = phase_fused_kernels(device)
     max_err.update(fused_errs)
     fused_launches, state["folded"] = phase_serve_folded(device)
     launches.update(fused_launches)
     launches["stem_probe"], max_err["stem_probe"], stem_times = phase_stem_probe(device, smi)
+    lap("fused_kernels_serve_folded_stem_probe")
     phase_tools(device)
     pruned_launches = phase_serve_pruned(device)
     eval_launches = phase_eval(device)
     phase_infer(smi)
+    lap("tools_serve_pruned_eval_infer")
     state["bench"] = phase_bench(smi)
+    lap("bench")
     times = phase_timing(device, smi, state)
+    lap("timing")
     times["nms_suppress"].update(eval_launches=eval_launches,
                                  slim50_launches=pruned_launches.pop("nms_suppress"))
     for name in FUSED:
@@ -2418,6 +2889,8 @@ def main() -> None:
     for name in KERNELS:
         times[name]["mbv3_launches"] = mbv3_launches.get(name, 0)
         times[name]["slim_launches"] = slim_launches.get(name, 0)
+        times[name]["quant_launches"] = quant_launches.get(name, 0)
+        times[name]["export_launches"] = export_launches.get(name, 0)
     for name in FUSED:
         times[name]["bf16_max_rel_err"] = bf16_errs[name]
         times[name]["bf16_source"] = BF16_SOURCES[name]
@@ -2438,7 +2911,8 @@ def main() -> None:
                                              "prepass_ms", "pixel_pass_ms", "class_ms",
                                              "loader_launches", "loader_max_abs_err",
                                              "loader_buckets", "fit_launches",
-                                             "mbv3_launches", "slim_launches")
+                                             "mbv3_launches", "slim_launches",
+                                             "quant_launches", "export_launches")
            + bf16_keys if key in times[name]}}
         for name, (source, replaces) in KERNELS.items()]}))
     print(smi, flush=True)

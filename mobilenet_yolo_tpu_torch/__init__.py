@@ -23,5 +23,8 @@ decode and augmentation, the device-geometry planner, ``Loader`` and
 training front door — ``train.loop`` (``Trainer``), ``train.checkpoints``,
 ``cli.train``, ``cli.eval``, ``hpo.random_search``, the one-device seam
 ``parallel.mesh`` and the copied ``utils`` meters, logger and TensorBoard
-writer.
+writer; and deployment — ``quant`` (int8 PTQ and its simulation) with
+``tools.quantize``, ``tools.export`` (``torch.export`` serving programs
+that carry the kernels as registered ops) and ``tools.convert_torch``
+(the upstream reference's checkpoint layout).
 """

@@ -36,6 +36,14 @@ exact, summed in float32).
 
 Biases may be float32 or the activations' type; the kernels read them as
 float32.
+
+Each wrapper reaches its kernel and its twin through a registered op
+(``myt::fused_inverted_residual``, ``myt::fused_inverted_residual_s2``,
+``myt::fused_stem_block0``; ``torch.library``, as ``nms_suppress.py``
+registers its own and for the same reasons; CUDA: the launch, with its
+plan worked out inside the op; CPU: the twin; fake: the output's shape and
+type), so ``torch.export`` records each block as one op of the graph and a
+program loaded from a ``.pt2`` launches, and counts, through the same op.
 """
 
 from __future__ import annotations
@@ -591,11 +599,7 @@ def fused_inverted_residual(x: torch.Tensor, w1, b1, wdw, bdw, w2, b2,
     _check_block("fused_inverted_residual", x, w1, b1, wdw, bdw, w2, b2, even=False)
     if residual and w2.shape[1] != x.shape[3]:
         raise ValueError(f"a residual needs Cout == Cin, got {w2.shape[1]} and {x.shape[3]}")
-    if x.device.type == "cpu":
-        return inverted_residual_reference(x, w1, b1, wdw, bdw, w2, b2, residual, 1)
-    out = _launch_block(x, w1, b1, wdw, bdw, w2, b2, residual, 1)
-    fused_inverted_residual.launches += 1
-    return out
+    return torch.ops.myt.fused_inverted_residual(x, w1, b1, wdw, bdw, w2, b2, residual)
 
 
 def fused_inverted_residual_s2(x: torch.Tensor, w1, b1, wdw, bdw, w2, b2) -> torch.Tensor:
@@ -603,11 +607,7 @@ def fused_inverted_residual_s2(x: torch.Tensor, w1, b1, wdw, bdw, w2, b2) -> tor
     H and W even -> (B, H/2, W/2, Cout). Dispatch as
     ``fused_inverted_residual``; counts in ``fused_inverted_residual_s2.launches``."""
     _check_block("fused_inverted_residual_s2", x, w1, b1, wdw, bdw, w2, b2, even=True)
-    if x.device.type == "cpu":
-        return inverted_residual_reference(x, w1, b1, wdw, bdw, w2, b2, False, 2)
-    out = _launch_block(x, w1, b1, wdw, bdw, w2, b2, False, 2)
-    fused_inverted_residual_s2.launches += 1
-    return out
+    return torch.ops.myt.fused_inverted_residual_s2(x, w1, b1, wdw, bdw, w2, b2)
 
 
 def fused_stem_block0(x: torch.Tensor, k_stem, b_stem, wdw, bdw, w2, b2) -> torch.Tensor:
@@ -632,13 +632,57 @@ def fused_stem_block0(x: torch.Tensor, k_stem, b_stem, wdw, bdw, w2, b2) -> torc
             raise ValueError(f"{name}: {key} must be {want}, got {tuple(t.shape)}")
     if cout > MAX_COUT:
         raise ValueError(f"{name} holds at most {MAX_COUT} output channels, got {cout}")
-    if x.device.type == "cpu":
-        return stem_block0_reference(x, k_stem, b_stem, wdw, bdw, w2, b2)
-    out = _launch_stem(x, k_stem, b_stem, wdw, bdw, w2, b2)
-    fused_stem_block0.launches += 1
-    return out
+    return torch.ops.myt.fused_stem_block0(x, k_stem, b_stem, wdw, bdw, w2, b2)
 
 
 fused_inverted_residual.launches = 0
 fused_inverted_residual_s2.launches = 0
 fused_stem_block0.launches = 0
+
+
+# ------------------------------------------------------- the registered ops --
+
+def _block_s1_cuda(x, w1, b1, wdw, bdw, w2, b2, residual: bool) -> torch.Tensor:
+    out = _launch_block(x, w1, b1, wdw, bdw, w2, b2, residual, 1)
+    fused_inverted_residual.launches += 1
+    return out
+
+
+def _block_s2_cuda(x, w1, b1, wdw, bdw, w2, b2) -> torch.Tensor:
+    out = _launch_block(x, w1, b1, wdw, bdw, w2, b2, False, 2)
+    fused_inverted_residual_s2.launches += 1
+    return out
+
+
+def _stem_cuda(x, k_stem, b_stem, wdw, bdw, w2, b2) -> torch.Tensor:
+    out = _launch_stem(x, k_stem, b_stem, wdw, bdw, w2, b2)
+    fused_stem_block0.launches += 1
+    return out
+
+
+def _block_s1_fake(x, w1, b1, wdw, bdw, w2, b2, residual: bool) -> torch.Tensor:
+    return x.new_empty((*x.shape[:3], w2.shape[1]))
+
+
+def _half_fake(x, w1, b1, wdw, bdw, w2, b2) -> torch.Tensor:
+    return x.new_empty((x.shape[0], x.shape[1] // 2, x.shape[2] // 2, w2.shape[1]))
+
+
+# name, schema, CUDA (the launch), CPU (the twin), fake (shape and type);
+# no autograd kernel: the folded blocks are inference only
+_OPS = (
+    ("fused_inverted_residual", "Tensor x, Tensor w1, Tensor b1, Tensor wdw, Tensor bdw, "
+     "Tensor w2, Tensor b2, bool residual", _block_s1_cuda,
+     lambda *a: inverted_residual_reference(*a, 1), _block_s1_fake),
+    ("fused_inverted_residual_s2", "Tensor x, Tensor w1, Tensor b1, Tensor wdw, Tensor bdw, "
+     "Tensor w2, Tensor b2", _block_s2_cuda,
+     lambda *a: inverted_residual_reference(*a, False, 2), _half_fake),
+    ("fused_stem_block0", "Tensor x, Tensor k_stem, Tensor b_stem, Tensor wdw, Tensor bdw, "
+     "Tensor w2, Tensor b2", _stem_cuda, stem_block0_reference, _half_fake),
+)
+_LIB = torch.library.Library("myt", "FRAGMENT")
+for _name, _args, _cuda, _cpu, _fake in _OPS:
+    _LIB.define(f"{_name}({_args}) -> Tensor")
+    _LIB.impl(_name, _cuda, "CUDA")
+    _LIB.impl(_name, _cpu, "CPU")
+    torch.library.register_fake(f"myt::{_name}", _fake, lib=_LIB)

@@ -9,6 +9,18 @@ padding and one-hot scalar extraction of ``pallas_nms.py:27-42``).
 ``mobilenet_yolo_tpu/ops/nms.py:38-51`` (``_suppress_scan``). It serves CPU
 tensors and is the oracle the kernel is held against on the card; it is
 never a fallback for a CUDA tensor.
+
+``suppress`` reaches both through the registered op ``myt::nms_suppress``
+(``torch.library``; CUDA: the kernel; CPU: the twin; fake: the output's
+shape), so ``torch.export`` records the scan as one op of the graph: a
+traced tensor has no ``data_ptr`` for the launch, and tracing the twin
+would unroll its loop over K. A program loaded from a ``.pt2`` launches
+through the same op and counts in ``suppress.launches``. The op is defined
+with ``Library.define`` and ``Library.impl``, not ``custom_op``, whose
+kernels run under ``torch._disable_dynamo``: that imports
+``torch._dynamo`` (seconds of start-up) in every process at its first
+launch and adds host time to each one. It registers no autograd kernel:
+the scan is inference only.
 """
 
 from __future__ import annotations
@@ -62,10 +74,12 @@ def suppress(over: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
     ``suppress_reference``. Any other input raises.
     """
     _check(over, valid)
-    if over.device.type == "cpu":
-        return suppress_reference(over, valid)
-    if over.device.type != "cuda":
+    if over.device.type not in ("cpu", "cuda"):
         raise ValueError(f"suppress runs on CPU or CUDA tensors, not {over.device}")
+    return torch.ops.myt.nms_suppress(over, valid)
+
+
+def _nms_suppress_cuda(over: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
     lib = _build.load()
     b, k = valid.shape
     keep = torch.empty((b, k), dtype=torch.bool, device=over.device)
@@ -79,6 +93,17 @@ def suppress(over: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
         raise RuntimeError(f"nms_suppress kernel launch failed: CUDA error {err}")
     suppress.launches += 1
     return keep
+
+
+_LIB = torch.library.Library("myt", "FRAGMENT")
+_LIB.define("nms_suppress(Tensor over, Tensor valid) -> Tensor")
+_LIB.impl("nms_suppress", _nms_suppress_cuda, "CUDA")
+_LIB.impl("nms_suppress", suppress_reference, "CPU")
+
+
+@torch.library.register_fake("myt::nms_suppress", lib=_LIB)
+def _nms_suppress_fake(over: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    return valid.new_empty(valid.shape, dtype=torch.bool)
 
 
 suppress.launches = 0

@@ -10,9 +10,14 @@ apart, ``--traffic`` per slot class); ``probe_fused_tiles``, the fused
 kernels' launch plans (the blocks', or with ``--stem`` the stem's) timed
 beside their cost model; and ``probe_nms``, the NMS scan's time (events
 per call, its device time with ``over`` in L2 and from HBM) beside both
-bounds, on the card only.
+bounds, on the card only. The deployment tools: ``quantize`` (int8
+post-training quantization: the artifact and the float vs int8 mAP A/B),
+``export`` (a ``.pt2`` serving program through ``torch.export``, its
+printed graph, or the weights as ``.npz``) and ``convert_torch`` (weights
+to and from the upstream reference's checkpoint layout).
 Each other tool runs on the card unless given ``--device cpu``; without a
-card, every tool raises unless given the CPU.
+card, every tool raises unless given the CPU (``convert_torch`` moves
+weights on the host and takes no device).
 """
 
 from __future__ import annotations

@@ -1231,3 +1231,53 @@ def test_prox_step_on_the_card_matches_the_cpu(cuda):
         assert float((got - want).abs().max()) <= 1e-4, key
         zeros += int((want == 0).sum())
     assert zeros > 0
+
+
+# ------------------------------------ kernels 1-4 as registered ops, exported
+
+def _op_cases(cuda):
+    """Each registered op with CUDA arguments at a small shape."""
+    over, valid = random_over(3, 2, 64, 0.2)
+    block = _fused_args(11, 2, 16, 16, 32, 192, 32, torch.float32, cuda)
+    stem = _fused_args(12, 2, 32, 32, 3, 32, 16, torch.float32, cuda, stem=True)
+    return {"nms_suppress": (over.to(cuda), valid.to(cuda)),
+            "fused_inverted_residual": (*block, True),
+            "fused_inverted_residual_s2": tuple(block),
+            "fused_stem_block0": tuple(stem)}
+
+
+@pytest.mark.parametrize("name", ["nms_suppress", "fused_inverted_residual",
+                                  "fused_inverted_residual_s2", "fused_stem_block0"])
+def test_opcheck_on_cuda_tensors(cuda, name):
+    """The CUDA implementation of each op (the kernel's launch) passes
+    ``torch.library.opcheck``: schema, fake against real shapes and
+    strides, autograd registration, dispatch."""
+    torch.library.opcheck(getattr(torch.ops.myt, name).default, _op_cases(cuda)[name])
+    torch.cuda.synchronize()
+
+
+def test_exported_folded_predict_launches_kernels_1_to_4(cuda, tmp_path):
+    """A folded VOC predict exported with ``tools/export.py``'s
+    ``export_predict``, saved and loaded: each call of the loaded program
+    launches the NMS scan once and the fused blocks 1 + 4 + 12 times, and
+    its outputs equal the eager predict's (``keep`` equal, ``dets`` within
+    1e-5: the same kernels and convolutions on the same inputs)."""
+    from mobilenet_yolo_tpu_torch.models.bn_fold import calibrate_bn
+    from mobilenet_yolo_tpu_torch.tools.export import export_predict
+
+    model = build_model(VOC, generator=torch.Generator().manual_seed(0))
+    images = torch.randn((2, 96, 96, 3), generator=torch.Generator().manual_seed(1)).to(cuda)
+    calibrate_bn(model, images)
+    folded = fold_batchnorm(model)
+    val_conf = torch.tensor(0.3, device=cuda)
+    path = str(tmp_path / "folded.pt2")
+    torch.export.save(export_predict(folded, VOC, images, val_conf), path)
+    program = torch.export.load(path).module()
+    want_dets, want_keep = make_predict_fn(folded, VOC)(images, val_conf)
+    counts, nms = _fused_counts(), suppress.launches
+    dets, keep = program(images, val_conf)
+    torch.cuda.synchronize()
+    assert [a - b for a, b in zip(_fused_counts(), counts)] == [1, 4, 12]
+    assert suppress.launches - nms == 1
+    assert torch.equal(keep, want_keep) and 0 < int(keep.sum())
+    assert float((dets - want_dets).abs().max()) <= 1e-5
