@@ -93,7 +93,38 @@ Phases, one output line each (any failure raises and exits non-zero):
               warm at every bucket (img/s, epoch seconds, the card's idle
               share; kernel 6 once per step), and one ``Trainer.evaluate``
               (kernel 1 once per batch).
-10. slim    — Network Slimming: ``cli.train --slim-l1 1e-4`` (prox, the fit
+10. dist    — data and tensor parallelism on the one card, after fit:
+              two gloo ranks (``parallel/mesh.py``; NCCL refuses two ranks
+              on one device) started as processes of their own, each
+              loading its 8 rows of every global batch of 16 from the data
+              phase's shards (the VOC loader, ``process_slice``), take the
+              full-width model through ``make_geometry_train_step`` on a
+              2x1 mesh: three steps in ``aug_compose`` mode and one in
+              ``slot_aug`` mode, each rank's kernel under its shard's seed,
+              float32 with TF32 off; held against this process stepping
+              the same global batches with each half augmented under its
+              rank's seed (losses, then parameters and BatchNorm
+              statistics after the first step, ``DIST_*``), every rank's
+              losses bit-equal, kernels 6 and 5 counted per rank. One
+              tensor-parallel step (mesh 1x2) against a data-parallel one
+              on the same global batch, noise off (``TP_*``). A ``Trainer``
+              on the 1x2 mesh: one epoch of two steps, its sharded eval and
+              its checkpoint (full tensors, rank 0 writes), then a second
+              ``Trainer`` resuming it, each rank restoring its slice
+              bit-equal, and this process loading it with ``strict=True``
+              (every rank's slice equal to its part). The fit checkpoint's
+              sharded eval, unfolded (kernel 1) and folded (kernels 1-4),
+              every rank's mAP bit-equal and within ``DIST_MAP_TOL`` of
+              the fit phase's ``cli.eval``, launches per rank. One rank at
+              world size 1 through the backend the port picks for the card
+              (NCCL, ``join_process_group``): a data-parallel step against
+              this process's and the sharded eval. The workers join
+              through ``initialize_distributed`` / ``join_process_group``
+              and run the steps in float32 with TF32 off, as this process
+              does, and the evals at torch's defaults, as ``cli.eval``. The
+              port makes no host copy of its own for a collective; gloo
+              takes the CUDA tensors.
+11. slim    — Network Slimming: ``cli.train --slim-l1 1e-4`` (prox, the fit
               recipe) continuing the fit phase's run (``--resume``) for
               ``SLIM_EPOCHS`` epochs, the port's ``tools/prune.py``
               (``--dry-run`` on the fit phase's plain checkpoint and on the
@@ -111,7 +142,7 @@ Phases, one output line each (any failure raises and exits non-zero):
               their twins on the cut's own weights and kernels 2-3 at the
               odd widths unpadded, and the cut's folded b128 time beside
               the VOC widths'.
-11. quant    — int8 PTQ of the fit phase's checkpoint: ``python -m
+12. quant    — int8 PTQ of the fit phase's checkpoint: ``python -m
               mobilenet_yolo_tpu_torch.tools.quantize --eval`` as its own
               process (calibration on 4 test batches of 8, the int8
               artifact, the float vs int8 mAP A/B at the checkpoint's gate;
@@ -123,7 +154,7 @@ Phases, one output line each (any failure raises and exits non-zero):
               64 test images (its mAP the tool's, kernel 1 once a batch)
               and its heads card vs CPU in float64 on 4 images
               (``QUANT_F64_REL_TOL``).
-12. export   — ``python -m mobilenet_yolo_tpu_torch.tools.export --what
+13. export   — ``python -m mobilenet_yolo_tpu_torch.tools.export --what
               aot`` of the same checkpoint at batch 8, 352x352, unfolded
               and ``--fold-bn``, each its own process; a fresh process
               (torch and the kernels package alone) loads each ``.pt2`` and
@@ -137,7 +168,7 @@ Phases, one output line each (any failure raises and exits non-zero):
               --reverse`` of the checkpoint directory converted back by
               ``--torch`` (beside the exports), served through
               ``cli/infer.py``'s loader with equal detections.
-13. fused_kernels — the three fused-block kernels of the BatchNorm-folded
+14. fused_kernels — the three fused-block kernels of the BatchNorm-folded
               forward (``fused_stem_block0``, ``fused_inverted_residual_s2``,
               ``fused_inverted_residual``; all on the tensor cores, float32
               in three TF32 passes) against their cuDNN twins, TF32 off, in
@@ -147,14 +178,14 @@ Phases, one output line each (any failure raises and exits non-zero):
               part-full), an unaligned width and odd output widths; and
               the float32 block kernel (block 16's shape) and stem kernel
               (its b128 352x352 shape) against the float64 twin.
-14. serve_folded — the same VOC model folded (``fold_batchnorm``) and served
+15. serve_folded — the same VOC model folded (``fold_batchnorm``) and served
               through ``make_predict_fn``: batch 1 and 128 at 352x352 in
               float32, uint8 normalize and bf16. Checks each request
               launched the stem kernel once, the stride-2 kernel 4 times and
               the stride-1 kernel 12 times, and that the folded model's
               heads match the unfolded model's (init weights in float32 and
               bf16, served weights in float32).
-15. stem_probe — the staged stem roofline kernel (``stem_probe``, stages a,
+16. stem_probe — the staged stem roofline kernel (``stem_probe``, stages a,
               b, c) driven through ``python -m
               mobilenet_yolo_tpu_torch.tools.probe_stem_cuda`` as a user runs
               it (a small check and the batch-128 352x352 bench, beside the
@@ -162,28 +193,28 @@ Phases, one output line each (any failure raises and exits non-zero):
               ``vs_stage_a``, c's time over a's); checks its launches,
               then each stage against its twin at a small shape, at S=18 (odd
               S/2) and at 128x352.
-16. tools   — the measurement tools at reduced iterations: ``bench_train`` at
+17. tools   — the measurement tools at reduced iterations: ``bench_train`` at
               batch 32 float32, plain and ``--remat`` (the backward adds time
               and at least doubles the FLOPs), one remat step against the
               plain step (same loss, same BatchNorm buffers, one count each),
               ``bench_geometry --stages --fused on`` at 416,
               ``probe_aug_kernels`` and ``probe_stem``; checks they launched
               the augmentation kernels.
-17. serve_pruned — the served slim50 plan (``configs/voc/slim50.yaml``,
+18. serve_pruned — the served slim50 plan (``configs/voc/slim50.yaml``,
               hidden widths off every 48- and 24-channel chunk) folded:
               heads against the unfolded model's (init weights float32 and
               bf16, calibrated float32), then a b128 request a dtype through
               ``make_predict_fn``, the fused kernels' launches counted.
-18. eval    — ``evaluate_detection`` on the card against the same run on
+19. eval    — ``evaluate_detection`` on the card against the same run on
               the CPU, float64, 23 images at batch 8 (a ragged tail), K=512:
               ``keep`` equal, mAP within 1e-9; the scan's launches counted.
-19. infer   — ``python -m mobilenet_yolo_tpu_torch.cli.infer`` as its own
+20. infer   — ``python -m mobilenet_yolo_tpu_torch.cli.infer`` as its own
               process (random weights): a directory of 5 PNGs at batch 2,
               then one image; a result file per input.
-20. bench   — ``python -m mobilenet_yolo_tpu_torch.bench`` as its own
+21. bench   — ``python -m mobilenet_yolo_tpu_torch.bench`` as its own
               process in 8 modes (``BENCH_MODES``): one JSON line each, a
               finite img/s, printed beside the card.
-21. timing  — CUDA-event throughput at batch 128 (f32, bf16, u8), unfolded
+22. timing  — CUDA-event throughput at batch 128 (f32, bf16, u8), unfolded
               and folded, batch-1 latency, the bench itself in each of its
               modes in this process (``bench.main``: ``in_process_bench_*``,
               beside its own-process number), the train step per mode and
@@ -212,7 +243,9 @@ beside the twin's and the bound (``loader_buckets``), the launches of the
 fit phase's in-process part (``fit_launches``, kernels 1-4 and 6), those of
 the mbv3 and slim phases (``mbv3_launches``, ``slim_launches``), of the
 quant phase's in-process int8 graph and of the export phase's fresh
-serving process (``quant_launches``, ``export_launches``), and, for
+serving process (``quant_launches``, ``export_launches``), rank 0's on the
+dist phase's data-parallel steps and sharded evals (``dist_launches``),
+and, for
 the three fused kernels, the float32 twins' kernels alone per b128 predict
 (``library_device_ms``, from
 ``torch.profiler``) and the float32 bound on CUDA cores (``fma_bound_ms``;
@@ -247,6 +280,7 @@ import statistics
 import subprocess
 import sys
 import time
+import types
 from pathlib import Path
 
 import numpy as np
@@ -276,6 +310,8 @@ from mobilenet_yolo_tpu_torch.models import build_model, mobilenetv2
 from mobilenet_yolo_tpu_torch.models.bn_fold import calibrate_bn, fold_batchnorm
 from mobilenet_yolo_tpu_torch.ops import nms as nms_ops
 from mobilenet_yolo_tpu_torch.ops.nms import _suppression_matrix
+from mobilenet_yolo_tpu_torch.parallel import create_mesh, global_batch
+from mobilenet_yolo_tpu_torch.parallel.mesh import join_process_group, rank_device
 from mobilenet_yolo_tpu_torch.tools import (bench_geometry, bench_train, probe_aug_kernels,
                                             probe_nms, probe_stem, probe_stem_cuda)
 from mobilenet_yolo_tpu_torch.tools.probe_fused_tiles import block_shapes, kernel_ms as profiled_ms
@@ -284,6 +320,7 @@ from mobilenet_yolo_tpu_torch.train import (GEOMETRY_BATCH_KEYS, create_train_st
                                             random_geometry_batch)
 from mobilenet_yolo_tpu_torch.train.checkpoints import CheckpointManager, served_state_dict
 from mobilenet_yolo_tpu_torch.train.loop import Trainer, TrainerConfig
+from mobilenet_yolo_tpu_torch.train.step import augment_geometry
 from mobilenet_yolo_tpu_torch.train.synthetic import random_program
 from mobilenet_yolo_tpu_torch.utils.profiling import (BF16_FLOPS, F32_FLOPS, HBM_BYTES_PER_S,
                                                       TF32_FLOPS, bound_ms, device_ms,
@@ -499,6 +536,40 @@ MBV3_DTYPES = {"f32": (False, None), "bf16": (False, torch.bfloat16),
 # the second (the parent at mAP 0.250, the cut at 0.062): its gammas were
 # still spread (median 0.136), so the cut took real mass; JAX's free cut
 # came at 60 epochs (§7c)
+# the dist phase: two gloo ranks on the one card (NCCL refuses two ranks
+# on one device) and one NCCL rank at world size 1, as processes of their
+# own; the data-parallel geometry steps at a global batch of 16 from the
+# data phase's shards, kernel 6 thrice and kernel 5 once
+DIST_DIR = ROOT / "build" / "chip_smoke_dist"
+DIST_BATCH = 16
+DIST_RANKS = 2
+DIST_MODES = (True, True, True, "split")
+DIST_SEED = 4321
+DIST_TIMEOUT = 400
+# JAX's tests/test_sharding.py:61-69: loss rtol 2e-4; parameters atol
+# 2.5e-3 (two all-reduce orders can flip AdamW's first step on a near-zero
+# gradient, one lr step); the BatchNorm statistics to the loss's rtol,
+# relative to each statistic's largest value (at least 1, ``step_err``)
+DIST_LOSS_RTOL = 2e-4
+DIST_PARAM_ATOL = 2.5e-3
+# the losses after the first update: tests/test_multiprocess.py's rtol
+# 3e-3 across process layouts (a flipped first AdamW step moves the next
+# loss, ~7e-4 there)
+DIST_LATER_LOSS_RTOL = 3e-3
+# the running statistics after the first step, on the scale of each
+# layer's activations (``step_err``), to the loss's rtol: float32 with TF32
+# off on both sides, they differ by the order of the sums (float64 over
+# two ranks against cuDNN's float32 over one batch); statistics of one
+# rank's rows alone, the fault this check is for, must lie above it, and
+# the phase checks that they do
+DIST_BN_TOL = 2e-4
+# test_tensor_parallel_step_matches_dp: loss rtol 3e-4, parameters 2.5e-3
+TP_LOSS_RTOL = 3e-4
+TP_PARAM_ATOL = 2.5e-3
+# each rank's half batch may take another cuDNN algorithm than the fit
+# phase's one process: the mAP within 1e-3 of its cli.eval, bit-equal
+# across ranks
+DIST_MAP_TOL = 1e-3
 SLIM_DIR = ROOT / "build" / "chip_smoke_slim"
 SLIM_EPOCHS = 8
 SLIM_FT_EPOCHS = 2
@@ -1579,6 +1650,405 @@ def phase_mbv3(device, smi: str) -> dict:
         report("timing", what=f"{backbone}_predict", **times, tf32=False, card=f"'{smi}'")
     report("mbv3", mbv3_launches=launches, phase_seconds=f"{time.perf_counter() - t_phase:.1f}",
            card=f"'{smi}'")
+    return launches
+
+
+# ------------------------------------------------------------------ dist --
+
+
+def dist_loader(mc: dict, data: dict, part: tuple[int, int]) -> Loader:
+    """The train CLI's geometry-mode loader over the data phase's shards at
+    the dist phase's global batch, cut to rows ``part`` = (index, count),
+    as a rank's loader cuts them."""
+    ds = DetectionDataset(records.RecordReader(data["trainval_dataset_path"]["lmdb"]),
+                          phase="train", expand_scale=mc["expand_scale"], apply_photometric=False)
+    norm = mc["normalize"]
+    return Loader(ds, DIST_BATCH, mc["train_img_size"], norm["mean"], norm["std"],
+                  mosaic_num=mc["mosaic_num"], output_uint8=True, device_geometry=True,
+                  seed=SEED, prefetch=0, shard_by_process=True, process_slice=part)
+
+
+def dist_batches(mc: dict, data: dict, part: tuple[int, int], n: int) -> list[dict]:
+    loader = dist_loader(mc, data, part)
+    loader.set_epoch(0)
+    return [b for _, b in zip(range(n), loader)]
+
+
+def geometry_args(t: dict) -> tuple:
+    return (*(t[k] for k in GEOMETRY_BATCH_KEYS), t["gt"], t["n_gt"])
+
+
+def state_arrays(model) -> dict[str, np.ndarray]:
+    """A copy of the model's floating-point state."""
+    return {k: v.detach().float().cpu().numpy().copy() for k, v in model.state_dict().items()
+            if v.is_floating_point()}
+
+
+def dist_worker(role: str, rank: int, world: int, port: int) -> None:
+    """One rank of the dist phase, started by ``phase_dist`` as its own
+    process. ``role`` ``gloo``: one of two ranks on the one card, running
+    the data-parallel geometry steps from its loader's rows, a
+    tensor-parallel step against a data-parallel one (noise off, the same
+    global batch), and the sharded eval of the fit checkpoint, unfolded and
+    folded, and a ``Trainer`` on a 1x2 mesh with its checkpoint. ``nccl``:
+    world size 1 through the backend the port picks for the card, one
+    data-parallel step and the sharded eval. Writes
+    ``DIST_DIR/<role><rank>.json`` (and ``.npz``)."""
+    from mobilenet_yolo_tpu_torch.parallel import initialize_distributed
+    from mobilenet_yolo_tpu_torch.parallel.sharding import shard_over_model_axis, split_tensors
+    from mobilenet_yolo_tpu_torch.train.checkpoints import state_payload
+
+    t0 = time.perf_counter()
+    # the steps in float32, as this process's reference runs them (cuDNN's
+    # default is TF32)
+    defaults = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    if world > 1:
+        check(initialize_distributed(f"localhost:{port}", world, rank, backend="gloo",
+                                     device="cuda"), "the gloo ranks joined")
+    else:
+        # world size 1, which initialize_distributed leaves alone: the
+        # backend it would pick for the card
+        join_process_group(f"tcp://localhost:{port}", world, rank, device="cuda")
+    device = rank_device("cuda")
+    data_yaml = str(DATA_DIR / "data.yaml")
+    data, cfg = load_yaml(data_yaml), load_config(data_yaml)
+    mc = cfg.model
+    info = {"role": role, "rank": rank, "backend": torch.distributed.get_backend(),
+            "device": str(device)}
+    out = {}
+    mesh = create_mesh(world, 1)
+
+    def fresh():
+        return build_model(mc, device=device, generator=torch.Generator().manual_seed(SEED))
+
+    # the data-parallel geometry steps, each rank on its loader's rows
+    modes = DIST_MODES if role == "gloo" else DIST_MODES[:1]
+    batches = dist_batches(mc, data, (mesh.data_index, mesh.n_data), len(modes))
+    model = fresh()
+    state = create_train_state(model)
+    steps = {m: make_geometry_train_step(model, mc, fused_aug=m, mesh=mesh) for m in set(modes)}
+    for counted in LAUNCH_COUNTERS:
+        counted.launches = 0
+    losses = []
+    for i, (mode, batch) in enumerate(zip(modes, batches)):
+        t = batch_to_device(batch, device)
+        state, metrics = steps[mode](state, *geometry_args(t), DIST_SEED + i,
+                                     out_hw=batch["out_size"])
+        losses.append(float(metrics["loss"]))
+        if i == 0:
+            out.update({f"step1/{k}": v for k, v in state_arrays(model).items()})
+    torch.cuda.synchronize()
+    info.update(losses=losses, rows=int(batches[0]["gt"].shape[0]),
+                step_launches={"aug_compose": aug_compose.launches, "slot_aug": slot_aug.launches})
+
+    if role == "gloo":
+        # one tensor-parallel step (mesh 1x2) against a data-parallel one
+        # (mesh 2x1) from the same init on the same global batch, noise off
+        mesh_tp = create_mesh(1, world)
+        full = dist_batches(mc, data, (0, 1), 1)[0]
+        full["noise_gate"][:] = False
+        t = batch_to_device(full, device)
+        results = []
+        for grid in (mesh, mesh_tp):
+            m = fresh()
+            st = create_train_state(m)
+            shard_over_model_axis(st, grid)
+            step = make_geometry_train_step(m, mc, fused_aug=True, mesh=grid)
+            _, metrics = step(st, *global_batch(grid, geometry_args(t)), DIST_SEED,
+                              out_hw=full["out_size"])
+            results.append((float(metrics["loss"]), state_payload(st)["model"],
+                            len(split_tensors(m))))
+        (loss_dp, dp, _), (loss_tp, tp, n_split) = results
+        info["tp"] = {"loss_dp": loss_dp, "loss_tp": loss_tp, "split_tensors": n_split,
+                      "params_max_abs_err": max(float((tp[k] - v).abs().max())
+                                                for k, v in dp.items() if v.is_floating_point())}
+        info["trainer"] = dist_trainer(mc, cfg, data, mesh_tp, fresh, device, out)
+
+    # the sharded eval of the fit checkpoint, unfolded (kernel 1) and folded
+    # (kernels 1-4), every rank reading the whole test set, at torch's
+    # default precision, as the fit phase's cli.eval that it is held to
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = defaults
+    raw = CheckpointManager(str(FIT_DIR)).restore_latest_raw()
+    served = build_model(mc, device=device)
+    served.load_state_dict(served_state_dict(raw))
+    test = Loader(DetectionDataset(records.RecordReader(data["test_dataset_path"]["lmdb"]),
+                                   phase="test"), mc["batch_size"], [[mc["img_w"], mc["img_h"]]],
+                  mc["normalize"]["mean"], mc["normalize"]["std"], shuffle=False,
+                  pad_final=False, shard_by_process=False)
+    info["eval"] = {}
+    for name, net in (("unfolded", served), ("folded", fold_batchnorm(served)))[
+            :2 if role == "gloo" else 1]:
+        for counted in LAUNCH_COUNTERS:
+            counted.launches = 0
+        res = evaluate_detection(make_predict_fn(net, mc, top_k=FIT_TOP_K, mesh=mesh), test,
+                                 cfg.classes, float(raw["val_conf"]),
+                                 batch_size=mc["batch_size"], device=device, mesh=mesh)
+        torch.cuda.synchronize()
+        info["eval"][name] = {"mAP": res["mAP"], "new_conf": res["new_conf"],
+                              "launches": {k: c.launches for k, c in
+                                           (("nms_suppress", suppress), *FUSED.items())}}
+    info["seconds"] = time.perf_counter() - t0
+    np.savez(DIST_DIR / f"{role}{rank}.npz", **out)
+    with open(DIST_DIR / f"{role}{rank}.json", "w") as f:
+        json.dump(info, f)
+    torch.distributed.destroy_process_group()
+
+
+def dist_trainer(mc: dict, cfg, data: dict, mesh, fresh, device, out: dict) -> dict:
+    """A ``Trainer`` on ``mesh`` as ``cli.train --device-geometry`` builds
+    it: one epoch of two steps on global batches from the shards, its
+    sharded eval and its checkpoint under ``DIST_DIR/trainer``, then a
+    second ``Trainer`` resuming it. Puts this rank's model state in ``out``
+    (``trainer/<key>``) for this process to hold the checkpoint against."""
+    from mobilenet_yolo_tpu_torch.parallel.sharding import split_tensors
+
+    tcfg = TrainerConfig(epochs=1, checkpoint_dir=str(DIST_DIR / "trainer"), eval_every=1,
+                         nms_top_k=FIT_TOP_K)
+
+    def make():
+        return Trainer(fresh(), mc, cfg.classes, tcfg, mesh=mesh, verbose=False,
+                       device_normalize=True, device_geometry=True, device=device)
+
+    test = Loader(DetectionDataset(records.RecordReader(data["test_dataset_path"]["lmdb"]),
+                                   phase="test"), mc["batch_size"], [[mc["img_w"], mc["img_h"]]],
+                  mc["normalize"]["mean"], mc["normalize"]["std"], shuffle=False,
+                  pad_final=False, output_uint8=True, shard_by_process=False)
+    batches = dist_batches(mc, data, (mesh.data_index, mesh.n_data), 2)
+    trainer = make()
+    launches = aug_compose.launches
+    mAP = trainer.fit(lambda: batches, lambda: test)
+    torch.cuda.synchronize()
+    saved = {k: v.detach().clone() for k, v in trainer.model.state_dict().items()}
+    out.update({f"trainer/{k}": v.float().cpu().numpy() for k, v in saved.items()
+                if v.is_floating_point()})
+    resumed = make()
+    check(resumed.maybe_resume(), "the second Trainer found the checkpoint")
+    got = resumed.model.state_dict()
+    split = split_tensors(trainer.model)
+    differ = [k for k, v in saved.items() if not torch.equal(got[k], v)]
+    return {"mAP": mAP, "steps": aug_compose.launches - launches,
+            "resumed_equal": not differ, "differ": differ[:5],
+            "differ_split": sum(k in split for k in differ),
+            "resumed_epoch": int(resumed.state.epoch),
+            "split_tensors": len(split)}
+
+
+def check_trainer_checkpoint(mc: dict, device) -> dict:
+    """The dist phase's ``Trainer`` checkpoint in this one process: it loads
+    into the full model with ``strict=True``, and each gloo rank's slice
+    of a split tensor (and every unsplit tensor) is its part of it."""
+    raw = CheckpointManager(str(DIST_DIR / "trainer")).restore_latest_raw()
+    check(raw is not None, "the dist Trainer wrote a checkpoint")
+    model = build_model(mc, device=device)
+    model.load_state_dict(raw["model"], strict=True)
+    full = {k: v.float().cpu().numpy() for k, v in raw["model"].items() if v.is_floating_point()}
+    parts = [{k[len("trainer/"):]: v for k, v in np.load(DIST_DIR / f"gloo{r}.npz").items()
+              if k.startswith("trainer/")} for r in range(DIST_RANKS)]
+    equal, split = True, 0
+    for k, v in full.items():
+        mine = [p[k] for p in parts]
+        if mine[0].shape == v.shape:
+            equal &= all(np.array_equal(m, v) for m in mine)
+        else:
+            split += 1
+            equal &= np.array_equal(np.concatenate(mine, axis=0), v)
+    return {"parts_equal": bool(equal), "split_tensors": split, "epoch": int(raw["epoch"])}
+
+
+def step1_arrays(name: str) -> dict[str, np.ndarray]:
+    return {k[len("step1/"):]: v for k, v in np.load(DIST_DIR / f"{name}.npz").items()
+            if k.startswith("step1/")}
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def dist_reference(model, mc: dict, halves: list[list[dict]], device) -> tuple[list, dict]:
+    """One process stepping the dist phase's global batches: each rank's
+    rows augmented under that rank's seed (``augment_geometry`` with the
+    rank's data index), the images joined, and the plain step on them.
+    Returns the losses and the state after the first step."""
+    state = create_train_state(model)
+    step = make_train_step(model, mc, normalize=True)
+    losses, first = [], None
+    for i, mode in enumerate(DIST_MODES[:len(halves[0])]):
+        images, gts, n_gts = [], [], []
+        for r, part in enumerate(halves):
+            t = batch_to_device(part[i], device)
+            images.append(augment_geometry(tuple(t[k] for k in GEOMETRY_BATCH_KEYS),
+                                           DIST_SEED + i, part[i]["out_size"], mode,
+                                           mesh=types.SimpleNamespace(data_index=r)))
+            gts.append(t["gt"])
+            n_gts.append(t["n_gt"])
+        state, metrics = step(state, *(torch.cat(part) for part in (images, gts, n_gts)))
+        losses.append(float(metrics["loss"]))
+        if i == 0:
+            first = state_arrays(model)
+    return losses, first
+
+
+def step_err(got: dict, want: dict) -> tuple[float, float, str]:
+    """The largest parameter difference, and the largest BatchNorm-statistic
+    difference on the scale of the layer's activations: a running mean's
+    against the running standard deviation, a running variance's against
+    the variance (and the layer with it)."""
+    params = max(float(np.abs(got[k] - v).max()) for k, v in want.items()
+                 if "running" not in k)
+    worst = (0.0, "")
+    for k, var in want.items():
+        if not k.endswith("running_var"):
+            continue
+        layer = k[:-len("running_var")]
+        mean = want[layer + "running_mean"]
+        err = max(float((np.abs(got[layer + "running_mean"] - mean) / np.sqrt(var)).max()),
+                  float((np.abs(got[k] - var) / var).max()))
+        worst = max(worst, (err, layer.rstrip(".")))
+    return params, worst[0], worst[1]
+
+
+def phase_dist(device, smi: str, fit_eval: dict) -> dict:
+    """Data and tensor parallelism on the one card (see the module's
+    docstring, phase 10). Returns rank 0's launches on the phase's main
+    path: kernel 6 and kernel 5 in the data-parallel steps, kernels 1-4 in
+    the sharded eval."""
+    t_phase = time.perf_counter()
+    shutil.rmtree(DIST_DIR, ignore_errors=True)
+    DIST_DIR.mkdir(parents=True)
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(p for p in (str(ROOT), env.get("PYTHONPATH")) if p)
+    jobs = [("gloo", r, DIST_RANKS) for r in range(DIST_RANKS)] + [("nccl", 0, 1)]
+    ports = {"gloo": free_port(), "nccl": free_port()}
+    procs = [subprocess.Popen(
+        [sys.executable, "-c",
+         f"import chip_smoke; chip_smoke.dist_worker({role!r}, {rank}, {world}, {ports[role]})"],
+        cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for role, rank, world in jobs]
+    try:
+        # meanwhile, one process steps the same global batches
+        data_yaml = str(DATA_DIR / "data.yaml")
+        data, cfg = load_yaml(data_yaml), load_config(data_yaml)
+        mc = cfg.model
+        halves = [dist_batches(mc, data, (r, DIST_RANKS), len(DIST_MODES))
+                  for r in range(DIST_RANKS)]
+        fresh = functools.partial(build_model, mc, device=device)
+        ref_losses, ref_first = dist_reference(
+            fresh(generator=torch.Generator().manual_seed(SEED)), mc, halves, device)
+        # the fault the BatchNorm check exists for: statistics of one rank's
+        # rows alone
+        _, alone_first = dist_reference(
+            fresh(generator=torch.Generator().manual_seed(SEED)), mc, halves[:1], device)
+        whole = dist_batches(mc, data, (0, 1), 1)
+        nccl_losses, nccl_first = dist_reference(
+            fresh(generator=torch.Generator().manual_seed(SEED)), mc, [whole], device)
+        outs = [p.communicate(timeout=DIST_TIMEOUT)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    for (role, rank, _), p, out in zip(jobs, procs, outs):
+        check(p.returncode == 0, f"dist {role} rank {rank} exited {p.returncode}:\n{out[-6000:]}")
+    infos = {(role, rank): json.load(open(DIST_DIR / f"{role}{rank}.json"))
+             for role, rank, _ in jobs}
+    gloo = [infos[("gloo", r)] for r in range(DIST_RANKS)]
+    nccl = infos[("nccl", 0)]
+
+    # the data-parallel steps against one process
+    check(all(g["losses"] == gloo[0]["losses"] for g in gloo), "every gloo rank's losses agree")
+    rels = [abs(a - b) / abs(b) for a, b in zip(gloo[0]["losses"], ref_losses)]
+    loss_rel, later_rel = rels[0], max(rels[1:])
+    params_err, stats_rel, stats_layer = step_err(step1_arrays("gloo0"), ref_first)
+    _, alone_stats, alone_layer = step_err(alone_first, ref_first)
+    for g in gloo:
+        report("dist", what="dp_steps", backend=g["backend"], rank=g["rank"], rows=g["rows"],
+               modes="/".join(str(m) for m in DIST_MODES), launches=g["step_launches"],
+               losses="/".join(f"{v:.6f}" for v in g["losses"]))
+    report("dist", what="dp_vs_one_process", loss_rel=f"{loss_rel:.3g}", tol=DIST_LOSS_RTOL,
+           later_loss_max_rel=f"{later_rel:.3g}", later_tol=DIST_LATER_LOSS_RTOL,
+           params_max_abs_err=f"{params_err:.3g}", params_tol=DIST_PARAM_ATOL,
+           bn_stats_max_rel=f"{stats_rel:.3g}", bn_layer=stats_layer, bn_tol=DIST_BN_TOL,
+           one_process_losses="/".join(f"{v:.6f}" for v in ref_losses), card=f"'{smi}'")
+    report("dist", what="one_ranks_rows_alone", bn_stats_max_rel=f"{alone_stats:.3g}",
+           bn_layer=alone_layer, above_tol=alone_stats > DIST_BN_TOL)
+    check(loss_rel <= DIST_LOSS_RTOL and later_rel <= DIST_LATER_LOSS_RTOL,
+          f"dp losses vs one process: rel {rels}")
+    check(params_err <= DIST_PARAM_ATOL, f"dp params vs one process: {params_err}")
+    check(stats_rel <= DIST_BN_TOL < alone_stats,
+          f"dp BatchNorm statistics vs one process {stats_rel} <= {DIST_BN_TOL}, which one "
+          f"rank's statistics alone ({alone_stats}) exceed")
+    for g in gloo:
+        want = {"aug_compose": DIST_MODES.count(True), "slot_aug": DIST_MODES.count("split")}
+        check(g["step_launches"] == want, f"rank {g['rank']}: {g['step_launches']} == {want}")
+
+    # the tensor-parallel step against the data-parallel one
+    tp = gloo[0]["tp"]
+    tp_rel = abs(tp["loss_tp"] - tp["loss_dp"]) / abs(tp["loss_dp"])
+    report("dist", what="tp_vs_dp", mesh="1x2", loss_dp=f"{tp['loss_dp']:.6f}",
+           loss_tp=f"{tp['loss_tp']:.6f}", loss_rel=f"{tp_rel:.3g}", tol=TP_LOSS_RTOL,
+           params_max_abs_err=f"{tp['params_max_abs_err']:.3g}", params_tol=TP_PARAM_ATOL,
+           split_layers=tp["split_tensors"])
+    check(tp["split_tensors"] > 0, "the TP step split layers")
+    check(tp_rel <= TP_LOSS_RTOL and tp["params_max_abs_err"] <= TP_PARAM_ATOL,
+          f"TP step vs DP step: {tp}")
+
+    # the Trainer on the 1x2 mesh, its checkpoint resumed on every rank and
+    # loaded here
+    ckpt = check_trainer_checkpoint(mc, device)
+    for g in gloo:
+        tr = g["trainer"]
+        report("dist", what="trainer_1x2", rank=g["rank"], steps=tr["steps"],
+               mAP=f"{tr['mAP']:.6f}", split_layers=tr["split_tensors"],
+               resumed_equal=tr["resumed_equal"], resumed_epoch=tr["resumed_epoch"])
+        check(tr["steps"] == 2 and tr["split_tensors"] > 0 and tr["resumed_equal"]
+              and tr["resumed_epoch"] == 1, f"rank {g['rank']} Trainer on the 1x2 mesh: {tr}")
+    report("dist", what="trainer_checkpoint_one_process", strict_load=True, **ckpt)
+    check(ckpt["parts_equal"] and ckpt["split_tensors"] > 0 and ckpt["epoch"] == 1,
+          f"the 1x2 Trainer's checkpoint in one process: {ckpt}")
+    check(len({g["trainer"]["mAP"] for g in gloo}) == 1, "the Trainer's mAP on every rank")
+
+    # the sharded eval: every rank's mAP bit-equal, near fit's one process
+    n_eval = -(-DATA_TEST // mc["batch_size"])
+    for name in ("unfolded", "folded"):
+        maps = {g["eval"][name]["mAP"] for g in gloo}
+        err = abs(gloo[0]["eval"][name]["mAP"] - fit_eval["mAP"])
+        for g in gloo:
+            report("dist", what=f"sharded_eval_{name}", rank=g["rank"],
+                   mAP=f"{g['eval'][name]['mAP']:.6f}", launches=g["eval"][name]["launches"])
+            want = {"nms_suppress": n_eval, **{k: n_eval * FUSED_PER_REQUEST[k] * (name == "folded")
+                                               for k in FUSED}}
+            check(g["eval"][name]["launches"] == want,
+                  f"rank {g['rank']} {name} eval launches {g['eval'][name]['launches']} == {want}")
+        report("dist", what=f"sharded_eval_{name}_vs_fit", fit_mAP=f"{fit_eval['mAP']:.6f}",
+               abs_err=f"{err:.3g}", tol=DIST_MAP_TOL, ranks_equal=len(maps) == 1)
+        check(len(maps) == 1, f"{name}: every rank's mAP is the same: {maps}")
+        check(err <= DIST_MAP_TOL, f"{name} sharded mAP within {DIST_MAP_TOL} of fit's")
+
+    # NCCL at world size 1
+    nccl_rel = abs(nccl["losses"][0] - nccl_losses[0]) / abs(nccl_losses[0])
+    nccl_params, nccl_stats, _ = step_err(step1_arrays("nccl0"), nccl_first)
+    nccl_map_err = abs(nccl["eval"]["unfolded"]["mAP"] - fit_eval["mAP"])
+    report("dist", what="nccl_world1", backend=nccl["backend"], loss=f"{nccl['losses'][0]:.6f}",
+           loss_rel=f"{nccl_rel:.3g}", params_max_abs_err=f"{nccl_params:.3g}",
+           bn_stats_max_rel=f"{nccl_stats:.3g}", launches=nccl["step_launches"],
+           mAP=f"{nccl['eval']['unfolded']['mAP']:.6f}", mAP_err=f"{nccl_map_err:.3g}")
+    check(nccl["backend"] == "nccl", "world size 1 on the card picked NCCL")
+    check(nccl_rel <= DIST_LOSS_RTOL and nccl_params <= DIST_PARAM_ATOL
+          and nccl_stats <= DIST_BN_TOL, "NCCL step vs one process")
+    check(nccl_map_err <= DIST_MAP_TOL, "NCCL sharded eval vs fit's mAP")
+
+    launches = {"aug_compose": gloo[0]["step_launches"]["aug_compose"],
+                "slot_aug": gloo[0]["step_launches"]["slot_aug"],
+                **{k: gloo[0]["eval"]["folded"]["launches"][k] for k in FUSED},
+                "nms_suppress": sum(gloo[0]["eval"][n]["launches"]["nms_suppress"]
+                                    for n in ("unfolded", "folded"))}
+    report("dist", dist_launches=launches,
+           worker_seconds="/".join(f"{i['seconds']:.1f}" for i in infos.values()),
+           phase_seconds=f"{time.perf_counter() - t_phase:.1f}", card=f"'{smi}'")
     return launches
 
 
@@ -2856,6 +3326,8 @@ def main() -> None:
     lap("mbv3")
     fit_launches, fit_eval = phase_fit(device, smi)
     lap("fit")
+    dist_launches = phase_dist(device, smi, fit_eval)
+    lap("dist")
     slim_launches = phase_slim(device, smi)
     lap("slim")
     quant_launches = phase_quant(device, smi, fit_eval)
@@ -2891,6 +3363,7 @@ def main() -> None:
         times[name]["slim_launches"] = slim_launches.get(name, 0)
         times[name]["quant_launches"] = quant_launches.get(name, 0)
         times[name]["export_launches"] = export_launches.get(name, 0)
+        times[name]["dist_launches"] = dist_launches.get(name, 0)
     for name in FUSED:
         times[name]["bf16_max_rel_err"] = bf16_errs[name]
         times[name]["bf16_source"] = BF16_SOURCES[name]
@@ -2912,7 +3385,8 @@ def main() -> None:
                                              "loader_launches", "loader_max_abs_err",
                                              "loader_buckets", "fit_launches",
                                              "mbv3_launches", "slim_launches",
-                                             "quant_launches", "export_launches")
+                                             "quant_launches", "export_launches",
+                                             "dist_launches")
            + bf16_keys if key in times[name]}}
         for name, (source, replaces) in KERNELS.items()]}))
     print(smi, flush=True)

@@ -13,6 +13,11 @@ controller state, train.py:434-440) unless ``--val-conf`` overrides it,
 and the averaged weights where the run kept them. ``-c`` may also name a
 ``.npz`` of the JAX package's variables. The model runs on ``--device``
 (default ``cuda``, which raises without a card).
+
+Launched as several processes by ``torchrun`` (one a device), ``--mesh``
+(default ``auto``: every rank on the data axis) shards the eval: every rank
+reads the whole test set and runs its rows of each batch, and every rank
+gets the same mAP; rank 0 prints it.
 """
 
 from __future__ import annotations
@@ -36,8 +41,9 @@ def main(argv=None):
                              "adapted val_conf (0.1 when unavailable)")
     parser.add_argument("--batch-size", default=32, type=int)
     parser.add_argument("--mesh", default="auto", type=str,
-                        help="device mesh spec (see cli/train.py --mesh); the "
-                             "port evaluates on one device")
+                        help="device mesh spec (see cli/train.py --mesh); "
+                             "'auto' shards the eval batch over every rank "
+                             "of a torchrun job")
     parser.add_argument("--random-weights", action="store_true")
     parser.add_argument("--coco-ap", action="store_true",
                         help="also report COCO-protocol AP@[.5:.95]/AP50/"
@@ -55,10 +61,15 @@ def main(argv=None):
     from mobilenet_yolo_tpu_torch.eval import make_predict_fn
     from mobilenet_yolo_tpu_torch.eval.evaluator import evaluate_detection
     from mobilenet_yolo_tpu_torch.models import build_model
-    from mobilenet_yolo_tpu_torch.parallel import mesh_from_spec
+    from mobilenet_yolo_tpu_torch.parallel import initialize_distributed, mesh_from_spec
+    from mobilenet_yolo_tpu_torch.parallel.mesh import is_primary, rank_device
+    from mobilenet_yolo_tpu_torch.parallel.sharding import shard_over_model_axis
     from mobilenet_yolo_tpu_torch.tools import tool_device
 
     device = tool_device(args.device)
+    # a torchrun job joins its group (a no-op for one process)
+    initialize_distributed(device=device)
+    device = rank_device(device)
     cfg = load_config(args.data_yaml)
     mc = cfg.model
     model = build_model(mc, args.backbone, device=device,
@@ -82,10 +93,12 @@ def main(argv=None):
     if val_conf is None:
         val_conf = 0.1
 
-    mesh_from_spec(args.mesh)   # one device: raises for any other spec
+    mesh = mesh_from_spec(args.mesh)
+    if mesh is not None:
+        shard_over_model_axis(model, mesh)
     # same NMS horizon as the Trainer (TrainerConfig.nms_top_k semantics:
     # the reference's ragged pipeline has no cap, utils/box.py:11-31)
-    predict = make_predict_fn(model, mc, top_k=int(mc.get("nms_top_k", 512)))
+    predict = make_predict_fn(model, mc, top_k=int(mc.get("nms_top_k", 512)), mesh=mesh)
 
     data_cfg = load_yaml(args.data_yaml)
     seg_nc = int(data_cfg.get("segmentation_num_classes", 0))
@@ -99,14 +112,15 @@ def main(argv=None):
 
     res = evaluate_detection(predict, loader, cfg.classes, val_conf,
                              batch_size=args.batch_size, coco_ap=args.coco_ap,
-                             device=device)
+                             device=device, mesh=mesh)
     out = {"mAP": res["mAP"], "APs": res["aps"],
            "val_conf": val_conf}
     if res["seg_miou"] is not None:
         out["seg_mIoU"] = float(res["seg_miou"])
     if args.coco_ap:
         out["coco"] = res["coco"]
-    print(json.dumps(out, indent=2))
+    if is_primary():
+        print(json.dumps(out, indent=2))
     return res["mAP"]
 
 

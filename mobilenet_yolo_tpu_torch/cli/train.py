@@ -12,9 +12,16 @@ The run is on ``--device`` (default ``cuda``, which raises without a card;
 ``cpu`` when asked). ``--slim-l1`` / ``--slim-mode`` train with Network
 Slimming (``prune.py``; ``tools/prune.py`` cuts the result, and
 ``--init-from <out>/params.npz`` with the cut's data yaml fine-tunes it).
-What the port does not have yet raises rather than being ignored:
-``--coordinator`` / ``--num-processes`` / ``--process-id`` or a ``--mesh``
-over more than one device (ROADMAP Queue 1 item 8). ``-o/--export`` is accepted
+
+Several processes, one a device (``parallel/mesh.py``): start one
+process per rank with ``--coordinator host:port --num-processes N
+--process-id r``, or launch them with ``torchrun`` (its environment is
+read when no coordinates are given). ``--mesh`` (default ``auto``: data
+parallelism over every rank) shapes them: ``N`` or ``NxM`` (data x model).
+The backend is NCCL on the card and gloo on the CPU. Each rank loads its
+rows of every global batch (``--batch-size`` is the global batch) and the
+whole eval set; rank 0 prints, logs and writes the checkpoints.
+``-o/--export`` is accepted
 and unused, as in JAX: export is ``tools/export.py`` (item 7). ``-j N``
 builds batches in N worker processes (``data/workers.py:WorkerLoader``,
 the port's ``GrainLoader``); ``--bf16`` runs the steps and predict under
@@ -82,19 +89,18 @@ def get_params(argv=None):
                              " Seg datasets: /16 targets rasterize on"
                              " device too")
     parser.add_argument("--mesh", default="auto", type=str,
-                        help="device mesh spec: 'auto' (default), 'none', 'N'"
-                             " or 'NxM'; the port runs one device, so only"
-                             " 'auto' with one card, 'none', 'off' and '1'"
-                             " are taken (parallelism: ROADMAP item 8)")
+                        help="device mesh spec: 'auto' (default — data-"
+                             "parallel over every rank of the process group),"
+                             " 'none', 'N' (N-way data parallel) or 'NxM'"
+                             " (N-way data x M-way tensor parallel); one"
+                             " process drives one device")
     parser.add_argument("--coordinator", default=None, type=str,
-                        help="multi-process coordinator address host:port;"
-                             " not taken until the parallelism port")
+                        help="multi-process coordinator address host:port"
+                             " (torch.distributed's tcp:// rendezvous)")
     parser.add_argument("--num-processes", default=None, type=int,
-                        help="total process count; not taken until the"
-                             " parallelism port")
+                        help="total process count (the world size)")
     parser.add_argument("--process-id", default=None, type=int,
-                        help="this process's rank; not taken until the"
-                             " parallelism port")
+                        help="this process's rank")
     parser.add_argument("-j", "--num-workers", default=0, type=int,
                         help="input-pipeline worker processes (the"
                              " reference's DataLoader num_workers=4,"
@@ -147,15 +153,21 @@ def main(args, report=None):
 
     from mobilenet_yolo_tpu_torch.config import load_config
     from mobilenet_yolo_tpu_torch.models import build_model
-    from mobilenet_yolo_tpu_torch.parallel import mesh_from_spec
+    from mobilenet_yolo_tpu_torch.parallel import initialize_distributed, mesh_from_spec
+    from mobilenet_yolo_tpu_torch.parallel.mesh import rank, rank_device, world_size
     from mobilenet_yolo_tpu_torch.tools import tool_device
     from mobilenet_yolo_tpu_torch.train.hpo import make_report_hook
     from mobilenet_yolo_tpu_torch.train.loop import Trainer, TrainerConfig
 
-    if any(v is not None for v in (args.coordinator, args.num_processes, args.process_id)):
-        raise NotImplementedError("--coordinator/--num-processes/--process-id need the "
-                                  "parallelism port (ROADMAP Queue 1 item 8)")
     device = tool_device(args.device)
+    # several processes: join the group before the mesh is made (a no-op
+    # for one process without coordinates)
+    joined = initialize_distributed(args.coordinator, args.num_processes, args.process_id,
+                                    device=device)
+    device = rank_device(device)
+    if joined:
+        print(f"torch.distributed: process {rank()} of {world_size()} "
+              f"({torch.distributed.get_backend()}, {device})", flush=True)
 
     overrides = {k: getattr(args, k) for k in (
         "ignore_thresh_1", "ignore_thresh_2", "iou_thresh", "expand_scale",
@@ -194,6 +206,11 @@ def main(args, report=None):
 
     mesh = mesh_from_spec(args.mesh, batch_size=model_cfg["batch_size"]
                           if "batch_size" in model_cfg else None)
+    if mesh is not None and rank() == 0:
+        print(f"device mesh: {mesh.shape}", flush=True)
+    # this rank's slice of each global train batch: its data index of the
+    # data axis (the ranks of one model group load the same rows)
+    p_idx, n_proc = (mesh.data_index, mesh.n_data) if mesh is not None else (0, 1)
     # the init is drawn on the CPU from seed 0 and then moved, so one seed
     # gives the same weights on every device
     model = build_model(model_cfg, args.backbone, device=device,
@@ -212,6 +229,13 @@ def main(args, report=None):
     device_normalize = not args.synthetic and not args.host_normalize
     device_pixel_aug = args.device_pixel_aug and device_normalize
     device_geometry = args.device_geometry and not args.synthetic
+    if args.init_from:
+        # before the Trainer: its average starts from the loaded weights, and
+        # a tensor-parallel mesh splits them
+        from mobilenet_yolo_tpu_torch.convert import load_flax_variables
+        from mobilenet_yolo_tpu_torch.tools_io import load_params_npz
+        params, batch_stats = load_params_npz(args.init_from)
+        load_flax_variables(model, {"params": params, "batch_stats": batch_stats})
     trainer = Trainer(model, model_cfg, classes_name, tcfg,
                       segmentation=segmentation, mesh=mesh,
                       report=report or make_report_hook(),
@@ -220,15 +244,6 @@ def main(args, report=None):
                       device_geometry=device_geometry, device=device,
                       dtype=torch.bfloat16 if args.bf16 else None)
 
-    if args.init_from:
-        from mobilenet_yolo_tpu_torch.convert import load_flax_variables
-        from mobilenet_yolo_tpu_torch.tools_io import load_params_npz
-        params, batch_stats = load_params_npz(args.init_from)
-        load_flax_variables(trainer.model, {"params": params, "batch_stats": batch_stats})
-        if trainer.state.ema is not None:
-            # the average starts from the loaded weights, not the init's
-            trainer.state.ema = {name: p.detach().clone()
-                                 for name, p in trainer.model.named_parameters()}
     if args.resume:
         # explicit resume source (reference train.py:138-153 takes a file;
         # here a checkpoint directory — its latest step is restored)
@@ -253,6 +268,12 @@ def main(args, report=None):
         from mobilenet_yolo_tpu_torch.data.synthetic import synthetic_batches
         bs = model_cfg["batch_size"]
         epoch_counter = {"n": 0}
+        # synthetic batches are deterministic in the seed, so every rank
+        # generates the same global batch; the train loader keeps this
+        # rank's rows, the eval loader the whole batch
+        if n_proc > 1 and bs % n_proc:
+            raise ValueError(f"--batch-size {bs} not divisible by "
+                             f"{n_proc} processes")
 
         def _synthetic_epoch(seed):
             return synthetic_batches(args.steps_per_epoch, bs,
@@ -262,8 +283,11 @@ def main(args, report=None):
 
         def train_loader():
             epoch_counter["n"] += 1  # fresh draws every epoch
+            local = bs // n_proc
+            rows = slice(p_idx * local, (p_idx + 1) * local)
             for images, gt, n_gt in _synthetic_epoch(epoch_counter["n"] % 4):
-                yield {"images": images, "gt": gt, "n_gt": n_gt, "count": bs}
+                yield {"images": images[rows], "gt": gt[rows], "n_gt": n_gt[rows],
+                       "count": local}
 
         def eval_loader():
             for images, gt, n_gt in _synthetic_epoch(epoch_counter["n"] % 4):
@@ -306,7 +330,9 @@ def main(args, report=None):
             mosaic_num=model_cfg["mosaic_num"],
             output_uint8=device_normalize,
             device_geometry=device_geometry,
-            stage_size=args.stage_size, **loader_kw)
+            stage_size=args.stage_size, process_slice=(p_idx, n_proc), **loader_kw)
+        # shard_by_process=False: every rank reads the same host-complete
+        # eval batches, and the sharded predict takes each rank's rows
         eval_loader_obj = Loader(test_ds, bs,
                                  [[model_cfg["img_w"], model_cfg["img_h"]]],
                                  norm["mean"], norm["std"], shuffle=False,
@@ -322,11 +348,13 @@ def main(args, report=None):
 
     if args.evaluate:
         mAP, aps = trainer.evaluate(eval_loader())
-        print({"mAP": mAP, **aps})
+        if rank() == 0:
+            print({"mAP": mAP, **aps})
         return mAP
 
     best = trainer.fit(train_loader, eval_loader)
-    print(f"best mAP: {best:.4f}")
+    if rank() == 0:
+        print(f"best mAP: {best:.4f}")
     return best
 
 

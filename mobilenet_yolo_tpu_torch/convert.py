@@ -31,6 +31,15 @@ import torch
 from torch import nn
 
 _PARAM_LEAVES = {"kernel": "weight", "scale": "weight", "bias": "bias"}
+# a 4-d flax kernel's axes as torch holds them: HWIO -> OIHW
+HWIO_TO_OIHW = (3, 2, 0, 1)
+
+
+def flax_last_axis(ndim: int) -> int:
+    """The torch axis that holds a flax leaf's last axis (a conv kernel's
+    output channels): axis 0 of a 4-d OIHW weight, the last axis of any
+    other leaf, which the converter keeps in its order."""
+    return HWIO_TO_OIHW.index(3) if ndim == 4 else ndim - 1
 _STAT_LEAVES = {"mean": "running_mean", "var": "running_var"}
 
 
@@ -61,7 +70,7 @@ def flax_to_state_dict(variables: Mapping) -> dict[str, torch.Tensor]:
         for path, value in _flatten(variables.get(collection, {})):
             arr = np.asarray(value)
             if path[-1] == "kernel" and arr.ndim == 4:
-                arr = arr.transpose(3, 2, 0, 1)
+                arr = arr.transpose(HWIO_TO_OIHW)
             key = _torch_key(path, leaves)
             if key in state:
                 raise KeyError(f"two flax leaves map to torch key {key!r}")

@@ -169,7 +169,8 @@ class Loader:
                  drop_last: bool = False, prefetch: int = 2,
                  pad_final: bool = True, shard_by_process: bool | None = None,
                  output_uint8: bool = False, device_geometry: bool = False,
-                 stage_size: int | None = None):
+                 stage_size: int | None = None,
+                 process_slice: tuple[int, int] | None = None):
         # pad_final keeps every batch at exactly batch_size samples by
         # wrapping indices on the final partial batch, so the card's step
         # sees one batch shape per bucket (the JAX step compiles one
@@ -181,6 +182,9 @@ class Loader:
         # plan (groups + per-batch image size) and takes its contiguous
         # slice of each global batch's groups — all ranks feed the same
         # step with the same (H, W), so their collectives stay in lockstep.
+        # process_slice (index, count) names the slice where it is not the
+        # rank's (under tensor parallelism the ranks of a model group load
+        # the same rows: their data index of the data axis).
         self.ds = dataset
         self.batch_size = batch_size
         self.transform_size = [tuple(s) for s in transform_size]
@@ -251,6 +255,7 @@ class Loader:
         if shard_by_process is None:
             shard_by_process = _distributed_slice()[1] > 1
         self.shard_by_process = shard_by_process
+        self.process_slice = process_slice
         self.epoch = 0
         self._skip_batches = 0
 
@@ -275,10 +280,11 @@ class Loader:
         self._skip_batches = int(n_batches)
 
     def _process_slice(self) -> tuple[int, int]:
-        """(rank, world size) of this process's slice of each batch."""
+        """(index, count) of this process's slice of each batch: its rank and
+        the world size unless ``process_slice`` says otherwise."""
         if not self.shard_by_process:
             return 0, 1
-        return _distributed_slice()
+        return self.process_slice if self.process_slice is not None else _distributed_slice()
 
     def __len__(self):
         # progress counted in raw images, like the reference sampler

@@ -3,8 +3,7 @@
 Port of ``mobilenet_yolo_tpu/eval/detector.py:23-108``
 (``make_predict_fn``). PyTorch runs eagerly, so there is no jit: ``predict``
 is a plain function under ``torch.inference_mode``. ``val_conf`` is a 0-d
-tensor, as the traced scalar is in JAX. The ``mesh`` argument waits for
-the parallelism port (ROADMAP.md, Queue 1: parallel/mesh.py).
+tensor, as the traced scalar is in JAX.
 """
 
 from __future__ import annotations
@@ -18,6 +17,7 @@ from torch import nn
 from mobilenet_yolo_tpu_torch.ops.anchors import scaled_anchors
 from mobilenet_yolo_tpu_torch.ops.decode import decode_predictions, reshape_head
 from mobilenet_yolo_tpu_torch.ops.nms import batched_nms
+from mobilenet_yolo_tpu_torch.parallel.mesh import all_gather_cat
 
 
 def _to_device(arr: np.ndarray, device: torch.device) -> torch.Tensor:
@@ -28,7 +28,7 @@ def _to_device(arr: np.ndarray, device: torch.device) -> torch.Tensor:
 
 def make_predict_fn(model: nn.Module, config: dict, top_k: int = 256,
                     iou_threshold: float = 0.45, normalize: bool = False,
-                    dtype: torch.dtype | None = None) -> Callable:
+                    dtype: torch.dtype | None = None, mesh=None) -> Callable:
     """Build ``predict(images, val_conf) -> (dets, keep[, seg])``.
 
     * images: (B, H, W, 3) NHWC batch on the model's device, normalized.
@@ -51,6 +51,15 @@ def make_predict_fn(model: nn.Module, config: dict, top_k: int = 256,
     heads are cast to float32 before decode here, where JAX decodes in the
     compute dtype, so bf16 only changes the logits, never the decode or NMS
     arithmetic.
+
+    With ``mesh`` (``detector.py:95-108``) the batch splits along the data
+    axis: ``images`` are this rank's rows (``parallel.mesh.global_batch`` of
+    a host-complete batch), each rank runs the forward, decode, top-K and
+    NMS (and so the NMS kernel, and the fused kernels on a folded model) on
+    them, and the outputs are gathered over the data group, so every rank
+    returns the whole batch's. Under a model axis above 1 a model split by
+    ``parallel.sharding.shard_over_model_axis`` runs its column-parallel
+    layers over the model group.
     """
     yolo_cfg = config["yolo"]
     anchors_px = np.asarray(yolo_cfg["anchors"], np.float32)
@@ -83,8 +92,11 @@ def make_predict_fn(model: nn.Module, config: dict, top_k: int = 256,
         preds = torch.cat(flats, dim=1)
         dets, keep = batched_nms(preds, val_conf, top_k=top_k,
                                  iou_threshold=iou_threshold)
+        out = (dets, keep)
         if "seg" in outputs:
-            return dets, keep, torch.sigmoid(outputs["seg"].permute(0, 2, 3, 1).float())
-        return dets, keep
+            out += (torch.sigmoid(outputs["seg"].permute(0, 2, 3, 1).float()),)
+        if mesh is not None:
+            out = tuple(all_gather_cat(t, mesh.data_group) for t in out)
+        return out
 
     return predict

@@ -3,13 +3,12 @@
 Port of ``mobilenet_yolo_tpu/eval/evaluator.py`` (reference train.py:333-424,
 ``test``): run detection over the eval set, collect per-image detections
 and ground truths, adjust the confidence gate from the predicted/GT
-box-count ratio, and compute VOC 11-point mAP. The ``mesh`` argument
-waits for the parallelism port (ROADMAP.md, Queue 1: parallel/mesh.py), as
-``make_predict_fn``'s does.
+box-count ratio, and compute VOC 11-point mAP.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Callable, Iterable
 
 import numpy as np
@@ -18,6 +17,7 @@ import torch
 from mobilenet_yolo_tpu_torch.ops.ap import calculate_mAP
 from mobilenet_yolo_tpu_torch.ops.coco_ap import calculate_coco_map
 from mobilenet_yolo_tpu_torch.ops.seg_metrics import SegMetricAccumulator
+from mobilenet_yolo_tpu_torch.parallel.mesh import global_batch
 
 
 def adjust_confidence(gt_box_num: int, pred_box_num: int, conf: float) -> float:
@@ -112,6 +112,7 @@ def evaluate_detection(
     log: Callable[[str], None] | None = None,
     coco_ap: bool = False,
     device: str | torch.device = "cuda",
+    mesh=None,
 ) -> dict:
     """The one evaluation loop (VOC protocol): fixed-shape batch padding,
     difficult-flag threading (reference eval_mAP.py:8-67 skips difficult GT
@@ -127,6 +128,12 @@ def evaluate_detection(
       batch moves to ``device`` and is padded with zero images up to the
       largest size seen so far, rounded to ``pad_multiple``, so every call
       sees one batch shape. The images keep the loader's dtype.
+    * ``mesh`` (``evaluator.py:111-167``): ``predict_fn`` is the sharded
+      predict of the same mesh. Every rank reads the same full loader; each
+      padded batch (``pad_multiple`` rounded up to a multiple of the data
+      axis) goes in as this rank's rows (``parallel.mesh.global_batch``),
+      and every rank gets the whole batch's detections back, so the mAP and
+      the val_conf controller are the same on every rank.
     * returns ``{"mAP", "aps", "new_conf", "seg_miou", "tp", "fp"}``
       (``seg_miou`` None without a seg head/maps), plus ``"coco"`` with
       ``coco_ap=True``.
@@ -135,6 +142,8 @@ def evaluate_detection(
     ev = Evaluator(classes_name)
     seg_acc = None
     vc = torch.tensor(val_conf, dtype=torch.float32, device=device)
+    if mesh is not None:
+        pad_multiple = math.lcm(pad_multiple, mesh.n_data)
 
     def round_up(n: int) -> int:
         return -(-n // pad_multiple) * pad_multiple
@@ -151,7 +160,7 @@ def evaluate_detection(
                       else max(batch_size, round_up(n)))
         if n < batch_size:
             images = torch.cat([images, images.new_zeros((batch_size - n,) + images.shape[1:])])
-        out = predict_fn(images, vc)
+        out = predict_fn(images if mesh is None else global_batch(mesh, images), vc)
         ev.add_batch(out[0][:n].cpu().numpy(), out[1][:n].cpu().numpy(), batch["gt"],
                      batch["n_gt"], difficulties=batch.get("gt_difficult"))
         if len(out) > 2 and "seg_maps" in batch:

@@ -31,6 +31,8 @@ from torch import nn
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from mobilenet_yolo_tpu_torch.parallel.mesh import differentiable_sum, group_size
+
 # flax momentum 0.9 (fraction of the old running stat) == torch momentum 0.1
 BN_MOMENTUM = 0.1
 BN_EPS = 1e-5
@@ -81,15 +83,33 @@ class BatchNorm2d(nn.BatchNorm2d):
     batch 1), where torch raises, normalises as flax does: the biased
     variance is 0, the output is the BN bias, and the running variance
     moves toward 0.
+
+    With a ``process_group`` of more than one rank (a data-parallel step
+    sets its data group, ``set_process_group``) the train-mode statistics
+    are the global batch's, as GSPMD computes them: ``_global`` sums each
+    channel's values and squares (in float64) and the row count over the
+    group, with the gradients summed back over it, and takes flax's
+    ``E[x^2] - E[x]^2``. ``nn.SyncBatchNorm`` would refuse CPU tensors
+    under a process group and move ``running_var`` toward the unbiased
+    variance.
     """
 
+    # the data group whose rows the train-mode statistics cover
+    process_group = None
     # set by ``rematerialized`` while the backward recomputes this layer
     recomputing = False
+    # ``rematerialized`` collects here the global sums of the first pass,
+    # which its recompute takes back in order
+    first_pass_sums: list | None = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         n = x.numel() // x.shape[1]
         if not (self.training and self.track_running_stats) or n < 1:
             return super().forward(x)
+        if self.recomputing and self.first_pass_sums:
+            return self._global(x, self.first_pass_sums.pop(0))
+        if group_size(self.process_group) > 1:
+            return self._global(x)
         if n == 1:
             return self._single_value(x)
         if self.recomputing:
@@ -106,6 +126,41 @@ class BatchNorm2d(nn.BatchNorm2d):
             self.running_var = self.running_var * ((n - 1) / n)
         return out
 
+    def _global(self, x: torch.Tensor, total: torch.Tensor | None = None) -> torch.Tensor:
+        """Normalise with the statistics of every rank's rows of the group.
+        ``total``: the sums a first pass took, reused by remat's recompute,
+        which then moves no buffer and calls no collective forward."""
+        c = x.shape[1]
+        xs = x if x.dtype == torch.float64 else x.float()
+        # the sums in float64: in float32, E[x^2] - E[x]^2 cancels away the
+        # variance of a channel whose mean is large against its spread
+        f64 = torch.float64
+        local = torch.cat([xs.sum(dim=(0, 2, 3), dtype=f64), (xs * xs).sum(dim=(0, 2, 3), dtype=f64),
+                           xs.new_full((1,), x.numel() // c, dtype=f64)])
+        sums = differentiable_sum(local, self.process_group, total)
+        if total is None and self.first_pass_sums is not None:
+            self.first_pass_sums.append(sums.detach())
+        n = sums[2 * c:].detach()
+        mean = sums[:c] / n
+        var = torch.clamp(sums[c:2 * c] / n - mean * mean, min=0.0)
+        mean, var = mean.to(xs.dtype), var.to(xs.dtype)
+        shape = (1, -1, 1, 1)
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        out = (xs - mean.reshape(shape)) * mul.reshape(shape) + self.bias.reshape(shape)
+        if total is None:
+            self._move_running(mean.detach(), var.detach())
+        return out.to(x.dtype)
+
+    def _move_running(self, mean: torch.Tensor, var: torch.Tensor) -> None:
+        """Flax's momentum update of the running statistics (biased ``var``)."""
+        with torch.no_grad():
+            self.num_batches_tracked.add_(1)
+            # momentum None is torch's cumulative average
+            m = (self.momentum if self.momentum is not None
+                 else 1.0 / float(self.num_batches_tracked))
+            self.running_mean.mul_(1.0 - m).add_(mean.to(self.running_mean.dtype), alpha=m)
+            self.running_var.mul_(1.0 - m).add_(var.to(self.running_var.dtype), alpha=m)
+
     def _single_value(self, x: torch.Tensor) -> torch.Tensor:
         shape = (1, -1, 1, 1)
         mean = x.mean(dim=(0, 2, 3))
@@ -114,14 +169,16 @@ class BatchNorm2d(nn.BatchNorm2d):
         out = (centred * torch.rsqrt(var + self.eps).reshape(shape) * self.weight.reshape(shape)
                + self.bias.reshape(shape))
         if not self.recomputing:
-            with torch.no_grad():
-                self.num_batches_tracked.add_(1)
-                # momentum None is torch's cumulative average
-                m = (self.momentum if self.momentum is not None
-                     else 1.0 / float(self.num_batches_tracked))
-                self.running_mean.mul_(1.0 - m).add_(mean.to(self.running_mean.dtype), alpha=m)
-                self.running_var.mul_(1.0 - m).add_(var.to(self.running_var.dtype), alpha=m)
+            self._move_running(mean.detach(), var.detach())
         return out
+
+
+def set_process_group(model: nn.Module, group) -> None:
+    """Make every ``BatchNorm2d`` of ``model`` take its train-mode
+    statistics over ``group`` (``None``: this process's rows)."""
+    for bn in model.modules():
+        if isinstance(bn, BatchNorm2d):
+            bn.process_group = group
 
 
 @contextlib.contextmanager
@@ -145,8 +202,13 @@ def rematerialized(block: nn.Module, x: torch.Tensor) -> torch.Tensor:
     time, apply the n/(n-1) rescale of ``BatchNorm2d`` twice and count
     ``num_batches_tracked`` twice; ``nn.remat`` does none of that. The
     recompute context makes each BatchNorm normalise with the batch
-    statistics and leave its buffers alone.
+    statistics and leave its buffers alone. Under a process group it
+    takes back the global sums of the first pass, so the recompute calls no
+    collective forward and every rank's backward calls the same ones.
     """
+    for bn in block.modules():
+        if isinstance(bn, BatchNorm2d):
+            bn.first_pass_sums = []
     return checkpoint(block, x, use_reentrant=False,
                       context_fn=lambda: (contextlib.nullcontext(), _recomputing(block)))
 

@@ -10,6 +10,8 @@ the first ``n_gt[b]`` are real.
 The ``.at[...].add`` scatters are ``index_put_(..., accumulate=True)``;
 ``torch.argmax`` takes the first of tied values as ``jnp.argmax`` does.
 Targets, weights, counts and metrics carry no gradient; the CIoU does.
+Given a data-parallel step's data group (``group``) ``count`` and the
+metrics are the global batch's, as they are under GSPMD.
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ from typing import NamedTuple
 
 import torch
 
+from mobilenet_yolo_tpu_torch.parallel.mesh import global_sum
 from mobilenet_yolo_tpu_torch.ops.boxes import box_ciou, cxcywh_to_corners, pairwise_iou, shape_iou
 
 
@@ -34,10 +37,11 @@ class TargetAssignment(NamedTuple):
 def build_targets(pred_boxes: torch.Tensor, output: torch.Tensor, gt: torch.Tensor,
                   n_gt: torch.Tensor, anchors_all_norm: torch.Tensor, mask,
                   ignore_thresh: float, iou_thresh: float,
-                  label_smooth_eps: float = 0.1) -> TargetAssignment:
+                  label_smooth_eps: float = 0.1, group=None) -> TargetAssignment:
     """pred_boxes (B, H, W, A, 4) train-decoded corners; output
     (B, H, W, A, 1+C) sigmoid(conf, classes); gt (B, T, 5); n_gt (B,);
-    anchors_all_norm (num_anchors, 2); ``mask`` this head's anchor indices."""
+    anchors_all_norm (num_anchors, 2); ``mask`` this head's anchor indices;
+    ``group`` the data group whose rows ``count`` and the metrics cover."""
     b, h, w, a, _ = output.shape
     t = gt.shape[1]
     c = output.shape[-1] - 1
@@ -97,16 +101,16 @@ def build_targets(pred_boxes: torch.Tensor, output: torch.Tensor, gt: torch.Tens
 
     with torch.no_grad():
         area_weight = (2.0 - (gt[..., 3] * gt[..., 4])[:, :, None]) * assign_f
-        count = assign_f.sum()
-        # running metrics (reference yolo_loss.py:146-177)
+        # running metrics (reference yolo_loss.py:146-177), from sums over
+        # the batch: the global batch's under a data-parallel step
         conf_at = output[b_idx, gj_idx, gi_idx, k_idx, 0]
         clsp_at = output[b_idx, gj_idx, gi_idx, k_idx, 1 + cls_idx]
-        obj_sum = (conf_at * assign_f).sum()
-        total_conf = output[..., 0].sum()
-        no_cnt = b * h * w * a
-        recall_sum = ((iou_el > ignore_thresh).to(dt) * assign_f).sum()
-        iou_sum = (iou_el * assign_f).sum()
-        cls_sum = (clsp_at * assign_f).sum()
+        sums = global_sum(torch.stack([
+            assign_f.sum(), (conf_at * assign_f).sum(), output[..., 0].sum(),
+            ((iou_el > ignore_thresh).to(dt) * assign_f).sum(), (iou_el * assign_f).sum(),
+            (clsp_at * assign_f).sum(), torch.tensor(float(b), dtype=dt, device=dev)]), group)
+        count, obj_sum, total_conf, recall_sum, iou_sum, cls_sum, b = sums.unbind()
+        no_cnt = b * (h * w * a)
         safe_count = count.clamp(min=1.0)
         has_pos = count > 0
         zero = torch.zeros((), dtype=dt, device=dev)

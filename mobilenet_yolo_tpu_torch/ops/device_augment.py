@@ -226,10 +226,17 @@ def _mix32(x: torch.Tensor) -> torch.Tensor:
     return x ^ (x >> 16)
 
 
-def noise_bits(seed: int, n: int, size: int, device=None) -> torch.Tensor:
-    """The generator's words for slots 0..n-1 at stage size ``size``:
-    (2, n, 3, S/2, S) int64 in [0, 2^32)."""
-    slot = torch.arange(n, dtype=torch.int64, device=device)
+def shard_seed(seed: int, index: int) -> int:
+    """The noise seed of data shard ``index``: ``seed + index * 101159`` with
+    int32 wrap-around, as the JAX kernels take it under a mesh
+    (``device_augment.py:449-452``)."""
+    return (int(seed) + int(index) * 101159 + 2 ** 31) % 2 ** 32 - 2 ** 31
+
+
+def noise_bits(seed: int, n: int, size: int, device=None, first_slot: int = 0) -> torch.Tensor:
+    """The generator's words for slots ``first_slot .. first_slot + n - 1``
+    at stage size ``size``: (2, n, 3, S/2, S) int64 in [0, 2^32)."""
+    slot = torch.arange(first_slot, first_slot + n, dtype=torch.int64, device=device)
     key = _mix32((int(seed) & _MASK32) ^ _mul32(slot, 0x9E3779B9))
     per_slot = 2 * 3 * (size // 2) * size
     j = torch.arange(per_slot, dtype=torch.int64, device=device)
@@ -255,14 +262,15 @@ def _as_words(debug_bits: torch.Tensor) -> torch.Tensor:
 
 
 def noised_planar(slots: torch.Tensor, seed: int, gate, scale, pc,
-                  debug_bits: torch.Tensor | None = None) -> torch.Tensor:
+                  debug_bits: torch.Tensor | None = None, first_slot: int = 0) -> torch.Tensor:
     """(N, S, S, 3) uint8/float -> (N, 3, S, S) f32 with the generator's (or
     ``debug_bits``') gated noise added and clipped (``pallas_aug.py:60-86``);
-    channel 0 of the per-channel field doubles as the shared plane."""
+    channel 0 of the per-channel field doubles as the shared plane. The
+    slots draw the generator's slots from ``first_slot`` on."""
     n, s = slots.shape[0], slots.shape[1]
     x = slots.permute(0, 3, 1, 2).to(F32)
     bits = (_as_words(debug_bits) if debug_bits is not None
-            else noise_bits(seed, n, s, slots.device))
+            else noise_bits(seed, n, s, slots.device, first_slot))
     z = gaussians(bits)
     z = torch.where(pc.view(-1, 1, 1, 1), z, z[:, 0:1])
     noised = torch.clamp(x + z * scale.to(F32).view(-1, 1, 1, 1), 0.0, 255.0)
@@ -270,19 +278,22 @@ def noised_planar(slots: torch.Tensor, seed: int, gate, scale, pc,
 
 
 def slot_noise(slots: torch.Tensor, seed: int, gate: torch.Tensor, scale: torch.Tensor,
-               per_channel: torch.Tensor, dtype: torch.dtype = F32) -> torch.Tensor:
+               per_channel: torch.Tensor, dtype: torch.dtype = F32,
+               first_slot: int = 0) -> torch.Tensor:
     """Additive gaussian noise per staged slot (``device_augment.py:355-386``).
 
     slots (B, T, S, S, 3) uint8/float; gate / per_channel (B, T) bool;
     scale (B, T) float in [0, 255] units. Slot (b, t) draws the generator's
-    slot ``b * T + t`` under ``seed``, as the kernels do. The sum is taken
+    slot ``first_slot + b * T + t`` under ``seed``, as the kernels do
+    (``first_slot`` 0). The sum is taken
     in f32 and rounded once to ``dtype``. Returns (B, T, S, S, 3) ``dtype``
     in [0, 255].
     """
     b, t, s = slots.shape[:3]
     n = b * t
     noised = noised_planar(slots.reshape(n, s, s, 3), seed, gate.reshape(n).bool(),
-                           scale.reshape(n), per_channel.reshape(n).bool())
+                           scale.reshape(n), per_channel.reshape(n).bool(),
+                           first_slot=first_slot)
     return noised.permute(0, 2, 3, 1).reshape(b, t, s, s, 3).to(dtype)
 
 

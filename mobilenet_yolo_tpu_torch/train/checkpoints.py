@@ -20,6 +20,12 @@ best stay (between equal mAPs, the newer), every step saved without one
 stays, and so does the newest step. Orbax deletes the newest step when its
 mAP is not among the best, and auto-resume then goes back to an older
 epoch; the port keeps it.
+
+Under a process group every rank calls ``save``: the tensors a
+tensor-parallel layer splits are gathered first (a collective), so a
+checkpoint holds full tensors under any mesh and loads in one process
+with ``strict=True``; rank 0 writes and prunes, and the others wait for it
+at a barrier. Every rank can restore; a split layer takes its own slice.
 """
 
 from __future__ import annotations
@@ -31,6 +37,8 @@ from typing import Optional
 
 import torch
 
+from mobilenet_yolo_tpu_torch.parallel.mesh import is_primary, sync_processes
+from mobilenet_yolo_tpu_torch.parallel.sharding import gather_full, map_split, own_slice
 from mobilenet_yolo_tpu_torch.train.state import TrainState
 
 STATE_FILE = "state.pt"
@@ -43,10 +51,13 @@ def _cpu(tensors: dict) -> dict:
 
 
 def state_payload(state: TrainState) -> dict:
-    """What ``save`` writes for ``state``."""
-    return {"model": _cpu(state.model.state_dict()),
-            "optimizer": state.optimizer.state_dict(),
-            "ema": _cpu(state.ema) if state.ema is not None else None,
+    """What ``save`` writes for ``state``: full tensors, gathered from a
+    tensor-parallel model's slices (a collective then)."""
+    model_sd, optimizer_sd, ema = map_split(state, state.model.state_dict(),
+                                            state.optimizer.state_dict(), state.ema, gather_full)
+    return {"model": _cpu(model_sd),
+            "optimizer": optimizer_sd,
+            "ema": _cpu(ema) if ema is not None else None,
             "epoch": int(state.epoch), "best_acc": float(state.best_acc),
             "val_conf": float(state.val_conf), "batch_idx": int(state.batch_idx)}
 
@@ -68,7 +79,7 @@ class CheckpointManager:
         self.max_to_keep = max_to_keep
         os.makedirs(self.directory, exist_ok=True)
         # temporary directories of saves that never finished
-        for name in os.listdir(self.directory):
+        for name in os.listdir(self.directory) if is_primary() else ():
             if name.startswith(_TMP_PREFIX):
                 shutil.rmtree(os.path.join(self.directory, name), ignore_errors=True)
 
@@ -93,17 +104,21 @@ class CheckpointManager:
     def save(self, step: int, state: TrainState, mAP: float | None = None,
              wait: bool = False):
         """Write ``state`` as ``step``. The write is synchronous, so ``wait``
-        (Orbax's wait for its background save) has nothing to wait for."""
-        if os.path.exists(self._path(step)):
-            raise ValueError(f"checkpoint step {step} already exists in {self.directory}")
-        tmp = os.path.join(self.directory, f"{_TMP_PREFIX}{step}-{os.getpid()}")
-        shutil.rmtree(tmp, ignore_errors=True)
-        os.makedirs(tmp)
-        torch.save(state_payload(state), os.path.join(tmp, STATE_FILE))
-        with open(os.path.join(tmp, METRICS_FILE), "w") as f:
-            json.dump({"mAP": float(mAP)} if mAP is not None else None, f)
-        os.replace(tmp, self._path(step))
-        self._retain()
+        (Orbax's wait for its background save) has nothing to wait for.
+        Under a process group every rank calls it; rank 0 writes."""
+        payload = state_payload(state)
+        if is_primary():
+            if os.path.exists(self._path(step)):
+                raise ValueError(f"checkpoint step {step} already exists in {self.directory}")
+            tmp = os.path.join(self.directory, f"{_TMP_PREFIX}{step}-{os.getpid()}")
+            shutil.rmtree(tmp, ignore_errors=True)
+            os.makedirs(tmp)
+            torch.save(payload, os.path.join(tmp, STATE_FILE))
+            with open(os.path.join(tmp, METRICS_FILE), "w") as f:
+                json.dump({"mAP": float(mAP)} if mAP is not None else None, f)
+            os.replace(tmp, self._path(step))
+            self._retain()
+        sync_processes("checkpoint_saved")
 
     def _retain(self) -> None:
         ranked = self._ranked()
@@ -176,8 +191,9 @@ class CheckpointManager:
 
 
 def _load_into(state: TrainState, raw: dict, ema: Optional[dict]) -> TrainState:
-    state.model.load_state_dict(raw["model"], strict=True)
-    state.optimizer.load_state_dict(raw["optimizer"])
+    model_sd, optimizer_sd, ema = map_split(state, raw["model"], raw["optimizer"], ema, own_slice)
+    state.model.load_state_dict(model_sd, strict=True)
+    state.optimizer.load_state_dict(optimizer_sd)
     if ema is None:
         state.ema = None
     else:

@@ -8,8 +8,14 @@ TSV logging, TensorBoard scalars and HPO report hooks.
 
 The steps run eagerly on ``device`` (the card unless the caller asks for
 the CPU) and update the model, its BatchNorm statistics, the optimizer
-and the EMA average in place. The ``mesh`` argument waits for the
-parallelism port (ROADMAP Queue 1 item 8) and raises until then.
+and the EMA average in place.
+
+Under a ``mesh`` (``parallel/mesh.py``; one process a rank) every rank runs
+this loop in lockstep: the train batches are this rank's rows, the steps
+reduce over the mesh's data group, the large layers are split over its
+model group when the model axis is above 1 (``parallel/sharding.py``),
+evaluation runs the sharded predict on the host-complete eval batches, and
+rank 0 alone prints, logs and writes TensorBoard events and checkpoints.
 """
 
 from __future__ import annotations
@@ -26,7 +32,9 @@ import torch
 from mobilenet_yolo_tpu_torch.data.pipeline import batch_to_device
 from mobilenet_yolo_tpu_torch.eval.detector import make_predict_fn
 from mobilenet_yolo_tpu_torch.eval.evaluator import evaluate_detection
-from mobilenet_yolo_tpu_torch.parallel.mesh import sync_processes
+from mobilenet_yolo_tpu_torch.parallel.mesh import (is_primary, rank_device, shard_batch,
+                                                    sync_processes)
+from mobilenet_yolo_tpu_torch.parallel.sharding import shard_over_model_axis
 from mobilenet_yolo_tpu_torch.train.checkpoints import CheckpointManager
 from mobilenet_yolo_tpu_torch.train.hpo import NoOpReport, ReportHook
 from mobilenet_yolo_tpu_torch.train.schedule import learning_rate_for_epoch
@@ -135,11 +143,12 @@ class Trainer:
         host dataset built with apply_photometric=False. device_geometry:
         batches arrive as staged sources + compose parameters
         (Loader(device_geometry=True)) and the step runs the whole
-        augmentation on the device (make_geometry_train_step)."""
-        if mesh is not None:
-            raise NotImplementedError("Trainer(mesh=...) needs the parallelism port "
-                                      "(ROADMAP Queue 1 item 8)")
-        self.device = torch.device(device)
+        augmentation on the device (make_geometry_train_step).
+
+        mesh: this process is one rank of it (``parallel.mesh.create_mesh``);
+        ``device`` ``cuda`` then means this rank's card
+        (``parallel.mesh.rank_device``)."""
+        self.device = rank_device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("the Trainer runs on the card by default and no CUDA device is "
                                "available; pass device='cpu' to train on the CPU")
@@ -150,26 +159,35 @@ class Trainer:
         self.segmentation = segmentation
         self.mesh = mesh
         self.report = report or NoOpReport()
-        self.verbose = verbose
+        # prints, log.txt and TensorBoard events come from rank 0 only: the
+        # metrics are the same on every rank
+        self._primary = is_primary()
+        self.verbose = verbose and self._primary
         self._ema_decay = cfg.ema_decay if cfg.ema_decay > 0 else None
         # predict first: it puts the model in channels_last memory, and the
         # optimizer then holds the parameters in the layout the steps use
         self.predict = make_predict_fn(model, model_cfg, top_k=cfg.nms_top_k,
-                                       normalize=device_normalize, dtype=dtype)
+                                       normalize=device_normalize, dtype=dtype, mesh=mesh)
         self.state = create_train_state(model, learning_rate=cfg.learning_rate,
                                         weight_decay=cfg.weight_decay, ema=cfg.ema_decay > 0)
+        if mesh is not None:
+            # tensor parallelism (a model axis above 1): split the large
+            # output channels (and their moments and average) over the model
+            # axis; the steps broadcast the state over each data group at
+            # their first call
+            shard_over_model_axis(self.state, mesh)
         self.device_pixel_aug = device_pixel_aug
         self.device_geometry = device_geometry
         if device_geometry:
             self.train_step = make_geometry_train_step(
                 model, model_cfg, segmentation=segmentation, ema_decay=self._ema_decay,
-                dtype=dtype)
+                dtype=dtype, mesh=mesh)
         else:
             self.train_step = make_train_step(
                 model, model_cfg, segmentation=segmentation, normalize=device_normalize,
-                pixel_aug=device_pixel_aug, ema_decay=self._ema_decay, dtype=dtype)
+                pixel_aug=device_pixel_aug, ema_decay=self._ema_decay, dtype=dtype, mesh=mesh)
         self.ckpt = CheckpointManager(cfg.checkpoint_dir)
-        self.tb = TensorBoardWriter(cfg.tensorboard_dir)
+        self.tb = TensorBoardWriter(cfg.tensorboard_dir if self._primary else None)
         self.logger = None
         self.best_acc = 0.0
         self._profiled = False
@@ -290,6 +308,8 @@ class Trainer:
                 if self.segmentation:
                     args += (t["seg_slots"], t["seg_active"])
                 args += (t["gt"], t["n_gt"])
+                if self.mesh is not None:
+                    args = shard_batch(self.mesh, args)
                 self.state, metrics = self.train_step(
                     self.state, *args, aug_seed(epoch, i), out_hw=batch["out_size"])
             else:
@@ -313,8 +333,10 @@ class Trainer:
                         "augmentation would be silently dropped; pass "
                         "device_pixel_aug=True (or rebuild the dataset "
                         "with apply_photometric=True)")
-                self.state, metrics = self.train_step(self.state, t["images"], t["gt"],
-                                                      t["n_gt"], *seg, *jit_plan)
+                args = (t["images"], t["gt"], t["n_gt"], *seg, *jit_plan)
+                if self.mesh is not None:
+                    args = shard_batch(self.mesh, args)
+                self.state, metrics = self.train_step(self.state, *args)
             if profile_at is not None:
                 if j == profile_at:
                     self._start_trace()
@@ -370,7 +392,7 @@ class Trainer:
             res = evaluate_detection(
                 self.predict, loader, self.classes_name, float(self.state.val_conf),
                 batch_size=batch_size, log=self._log if self.verbose else None,
-                device=self.device)
+                device=self.device, mesh=self.mesh)
         finally:
             if live is not None:
                 with torch.no_grad():
@@ -384,7 +406,7 @@ class Trainer:
             eval_loader_fn: Callable[[], Iterable],
             start_epoch: int | None = None) -> float:
         cfg = self.cfg
-        if self.logger is None:
+        if self.logger is None and self._primary:
             path = os.path.join(cfg.checkpoint_dir, "log.txt")
             resume = os.path.isfile(path) and start_epoch != 0
             self.logger = Logger(path, title="training-process", resume=resume)

@@ -8,8 +8,17 @@ geometric compose), through the hand-written kernels or their plain ops.
 
 bf16 (``dtype=torch.bfloat16``) is ``torch.autocast`` around the forward;
 the heads are cast to f32 and the loss is computed in f32, as the JAX step
-does under a bf16 model (``step.py:145-146``). The ``mesh`` arguments wait
-for the parallelism port.
+does under a bf16 model (``step.py:145-146``).
+
+Under a ``mesh`` (``parallel/mesh.py``) each rank steps its rows of the
+global batch: the step builders give the mesh's data group to every
+BatchNorm (``layers.set_process_group``) and to the loss, so BatchNorm's
+statistics and the loss's normalisers are the global batch's and each rank's loss is its share of the global
+loss; the gradients are then summed over the group in one all-reduce, and
+AdamW, the prox and the EMA run identically on every rank. The first call
+broadcasts the state from the group's first rank. The metrics are the
+global ones, equal on every rank. Under a model axis above 1 the large
+output channels are split over the model group (``parallel/sharding.py``).
 
 Network Slimming (``slim_l1`` in the config, ``step.py:32-62``):
 ``slim_mode: loss`` adds ``slim_l1 * prune.slim_penalty`` to the train-mode
@@ -33,9 +42,13 @@ from mobilenet_yolo_tpu_torch.ops.device_augment import (
     geometric_compose,
     planned_color_jitter,
     seg_compose,
+    shard_seed,
     slot_noise,
 )
+from mobilenet_yolo_tpu_torch.models.layers import set_process_group
 from mobilenet_yolo_tpu_torch.ops.losses import seg_loss, yolo_head_loss
+from mobilenet_yolo_tpu_torch.parallel.mesh import all_reduce_, global_sum, group_size
+from mobilenet_yolo_tpu_torch.parallel.sharding import agree_replicated_gradients, replicate
 from mobilenet_yolo_tpu_torch.prune import slim_penalty, slim_prox_update
 from mobilenet_yolo_tpu_torch.train.state import TrainState
 
@@ -63,7 +76,8 @@ def _to_device(arr: np.ndarray, device: torch.device, dtype=None) -> torch.Tenso
 
 
 def make_loss_fn(model: torch.nn.Module, config: dict, segmentation: bool = False,
-                 normalize: bool = False, dtype: torch.dtype | None = None) -> Callable:
+                 normalize: bool = False, dtype: torch.dtype | None = None,
+                 group=None) -> Callable:
     """``loss_fn(images, gt, n_gt, seg_maps=None, train=True) -> (loss,
     metrics)`` (``step.py:84-168``).
 
@@ -76,7 +90,11 @@ def make_loss_fn(model: torch.nn.Module, config: dict, segmentation: bool = Fals
     statistics and updates the running ones; ``train=False`` in eval mode.
     The loss is f32; the metrics carry no gradient. With ``slim_mode:
     loss`` the train-mode loss carries ``slim_l1 * slim_penalty(model)``.
+    ``group`` (a data-parallel step's data group, set on every BatchNorm
+    of ``model`` too): each rank's loss is its share of the group's global
+    loss, and the metrics are the group's, equal on every rank.
     """
+    set_process_group(model, group)
     slim_l1, slim_mode = _slim_cfg(config)
     if slim_mode != "loss":
         slim_l1 = 0.0
@@ -114,18 +132,25 @@ def make_loss_fn(model: torch.nn.Module, config: dict, segmentation: bool = Fals
         for i, (key, mask, ig) in enumerate(zip(HEAD_KEYS, masks, ignore_threshs)):
             hl = yolo_head_loss(outputs[key], gt, n_gt, anchors_norm, mask, num_classes,
                                 ignore_thresh=ig, iou_thresh=iou_thresh,
-                                iou_weighting=iou_weighting)
+                                iou_weighting=iou_weighting, group=group)
             total = total + hl.loss
             for mk, mv in hl.metrics.items():
                 metrics[f"{mk}{i}"] = mv
         if segmentation:
-            sl, s_obj, s_no_obj = seg_loss(outputs["seg"], seg_maps)
+            sl, s_obj, s_no_obj = seg_loss(outputs["seg"], seg_maps, group)
             total = total + sl
             metrics["seg_obj"] = s_obj
             metrics["seg_no_obj"] = s_no_obj
         if slim_l1 and train:
-            total = total + slim_l1 * slim_penalty(model)
+            # each rank carries its share, so the shares sum to one penalty
+            total = total + slim_l1 * slim_penalty(model) / group_size(group)
         metrics["loss"] = total.detach()
+        if group is not None:
+            # the losses are each rank's share of a global ratio; the other
+            # metrics are global already
+            keys = ["loss"] + [k for k in metrics if k.startswith(("conf_cls_loss", "iou_loss"))]
+            metrics.update(zip(keys, global_sum(torch.stack([metrics[k] for k in keys]),
+                                                group).unbind()))
         return total, metrics
 
     return loss_fn
@@ -151,16 +176,55 @@ def _ema_update(state: TrainState, ema_decay: float | None, ema_ramp: float = 20
         torch._foreach_add_(ema, [p.detach() for p in params], alpha=1.0 - d)
 
 
+def _data_group(mesh):
+    return None if mesh is None else mesh.data_group
+
+
+def _check_mesh(config: dict, mesh) -> None:
+    lam, mode = _slim_cfg(config)
+    if mesh is not None and mesh.n_model > 1 and lam and mode == "loss":
+        raise ValueError("slim_mode 'loss' under a model axis above 1 is not supported: "
+                         "each rank's L1 penalty would count its channel shard only")
+
+
+def _replicating(mesh) -> Callable:
+    """``ensure(state)``: broadcast each new state over the mesh's data
+    group once, from the group's first rank (``sharding.replicate``)."""
+    seen: set = set()
+
+    def ensure(state: TrainState) -> None:
+        if mesh is not None and id(state) not in seen:
+            replicate(state, mesh)
+            seen.add(id(state))
+
+    return ensure
+
+
+def _reduce_gradients(model: torch.nn.Module, group) -> None:
+    """Sum every parameter's gradient over ``group``, in one all-reduce."""
+    grads = [p.grad for p in model.parameters() if p.grad is not None]
+    flat = all_reduce_(torch._utils._flatten_dense_tensors(grads), group)
+    for g, total in zip(grads, torch._utils._unflatten_dense_tensors(flat, grads)):
+        g.copy_(total)
+
+
 def _update(state: TrainState, model: torch.nn.Module, loss_fn: Callable, images, gt, n_gt,
-            seg_maps, ema_decay, ema_ramp, slim_prox: float):
+            seg_maps, ema_decay, ema_ramp, slim_prox: float, mesh=None):
     """One optimizer step on ``loss_fn``, then the prox shrink with strength
     ``slim_prox`` (0 = off), then the EMA, which sees the shrunk
-    parameters; the gradients stay on the parameters until the next step."""
+    parameters; the gradients stay on the parameters until the next step.
+    Under ``mesh`` the gradients are summed over its data group, and the
+    replicated ones taken from the model group's first rank, before the
+    optimizer step."""
     if state.model is not model:
         raise ValueError("the state holds another model than the step was built for")
     state.optimizer.zero_grad(set_to_none=True)
+    group = _data_group(mesh)
     loss, metrics = loss_fn(images, gt, n_gt, seg_maps)
     loss.backward()
+    if group is not None:
+        _reduce_gradients(model, group)
+    agree_replicated_gradients(model, mesh)
     state.optimizer.step()
     if slim_prox:
         slim_prox_update(model, state.optimizer, slim_prox)
@@ -171,32 +235,37 @@ def _update(state: TrainState, model: torch.nn.Module, loss_fn: Callable, images
 def make_train_step(model: torch.nn.Module, config: dict, segmentation: bool = False,
                     normalize: bool = False, pixel_aug: bool = False,
                     ema_decay: float | None = None, ema_ramp: float = 2000.0,
-                    dtype: torch.dtype | None = None) -> Callable:
+                    dtype: torch.dtype | None = None, mesh=None) -> Callable:
     """``train_step(state, images, gt, n_gt[, seg_maps][, jitter_op,
     jitter_factor]) -> (state, metrics)`` (``step.py:205-284``).
 
     ``pixel_aug=True`` (needs ``normalize=True``, raw images) applies the
     host-planned photometric programs ``jitter_op`` / ``jitter_factor``
     (B, 5) on the device before the forward, in ``dtype`` (default f32).
+    Under ``mesh`` the arguments are this rank's rows of the global batch.
     """
     if pixel_aug and not normalize:
         raise ValueError("pixel_aug requires normalize=True (raw images)")
-    loss_fn = make_loss_fn(model, config, segmentation, normalize=normalize, dtype=dtype)
+    _check_mesh(config, mesh)
+    loss_fn = make_loss_fn(model, config, segmentation, normalize=normalize, dtype=dtype,
+                           group=_data_group(mesh))
     slim_prox = _prox_lambda(config)
     n_extra = int(segmentation) + 2 * int(pixel_aug)
+    ensure_replicated = _replicating(mesh)
 
     def step(state: TrainState, images, gt, n_gt, *extra):
         if len(extra) != n_extra:
             raise TypeError(f"train_step takes {4 + n_extra} arguments "
                             f"(segmentation={segmentation}, pixel_aug={pixel_aug}), "
                             f"got {4 + len(extra)}")
+        ensure_replicated(state)
         seg_maps = extra[0] if segmentation else None
         if pixel_aug:
             jitter_op, jitter_factor = extra[-2:]
             images = planned_color_jitter(images, jitter_op, jitter_factor,
                                           dtype=dtype or torch.float32)
         return _update(state, model, loss_fn, images, gt, n_gt, seg_maps, ema_decay, ema_ramp,
-                       slim_prox)
+                       slim_prox, mesh)
 
     return step
 
@@ -208,10 +277,11 @@ def _prox_lambda(config: dict) -> float:
 
 
 def make_eval_step(model: torch.nn.Module, config: dict, segmentation: bool = False,
-                   dtype: torch.dtype | None = None) -> Callable:
+                   dtype: torch.dtype | None = None, mesh=None) -> Callable:
     """``eval_step(state, images, gt, n_gt[, seg_maps]) -> metrics`` with
-    the running BatchNorm statistics and no update (``step.py:424-437``)."""
-    loss_fn = make_loss_fn(model, config, segmentation, dtype=dtype)
+    the running BatchNorm statistics and no update (``step.py:424-437``);
+    under ``mesh``, of this rank's rows, with the global batch's metrics."""
+    loss_fn = make_loss_fn(model, config, segmentation, dtype=dtype, group=_data_group(mesh))
 
     @torch.no_grad()
     def step(state: TrainState, images, gt, n_gt, seg_maps=None):
@@ -221,7 +291,7 @@ def make_eval_step(model: torch.nn.Module, config: dict, segmentation: bool = Fa
 
 
 def augment_geometry(geom, aug_seed: int, out_hw, mode: bool | str,
-                     dtype: torch.dtype = torch.float32) -> torch.Tensor:
+                     dtype: torch.dtype = torch.float32, mesh=None) -> torch.Tensor:
     """(B, H, W, 3) training images in [0, 255] from the ``GEOMETRY_BATCH_KEYS``
     tensors ``geom`` (``step.py:337-378``, ``device_augment.py:389-468``):
     noise, then the photometric programs, then the geometric compose.
@@ -231,11 +301,21 @@ def augment_geometry(geom, aug_seed: int, out_hw, mode: bool | str,
     plain ops in ``dtype``. The kernel modes emit bf16 whatever ``dtype``:
     bf16 resolves [0, 255] at 0.25-1 intensity, finer than the uint8
     staging the slots come from. ``aug_seed`` keys one noise stream for
-    every mode. The JAX ``mesh`` branch waits for the parallelism port.
+    every mode.
+
+    Under ``mesh`` ``geom`` holds this rank's rows. The kernel modes then
+    take the seed of this rank's data shard, ``shard_seed(aug_seed,
+    data_index)``, on their local slots, as the JAX kernels do inside
+    ``shard_map`` (``device_augment.py:445-456``); the plain mode, which
+    GSPMD runs on the global batch in JAX, draws the global slots' noise
+    (the slots after every lower shard's).
     """
     (slots, src_rect, dst_rect, fill_rect, fill_color, fill_from_mean, flip, active,
      noise_gate, noise_scale, noise_per_channel, jitter_op, jitter_factor) = geom
     place = (src_rect, dst_rect, fill_rect, fill_color, fill_from_mean, flip, active)
+    shard = 0 if mesh is None else mesh.data_index
+    if mode is not False:
+        aug_seed = shard_seed(aug_seed, shard)
     if mode is True:
         return aug_compose(slots, aug_seed, noise_gate, noise_scale, noise_per_channel,
                            jitter_op, jitter_factor, *place, out_hw)
@@ -250,7 +330,8 @@ def augment_geometry(geom, aug_seed: int, out_hw, mode: bool | str,
                                  dtype=torch.bfloat16, planar=True)
     # noise before the programs, as the reference applies its imgaug
     # sequence before the photometric distortion (folder2lmdb.py:131-135)
-    noised = slot_noise(slots, aug_seed, noise_gate, noise_scale, noise_per_channel, dtype=dtype)
+    noised = slot_noise(slots, aug_seed, noise_gate, noise_scale, noise_per_channel, dtype=dtype,
+                        first_slot=shard * slots.shape[0] * slots.shape[1])
     return geometric_compose(noised, *place, out_hw, jitter_op=jitter_op,
                              jitter_factor=jitter_factor, dtype=dtype)
 
@@ -258,7 +339,7 @@ def augment_geometry(geom, aug_seed: int, out_hw, mode: bool | str,
 def make_geometry_train_step(model: torch.nn.Module, config: dict, segmentation: bool = False,
                              fused_aug: bool | str | None = None,
                              ema_decay: float | None = None, ema_ramp: float = 2000.0,
-                             dtype: torch.dtype | None = None) -> Callable:
+                             dtype: torch.dtype | None = None, mesh=None) -> Callable:
     """Train step with the whole augmentation on the device
     (``step.py:293-421``).
 
@@ -275,11 +356,15 @@ def make_geometry_train_step(model: torch.nn.Module, config: dict, segmentation:
     against; ``None`` is ``True`` for CUDA tensors and ``False``
     otherwise. The kernel paths emit bf16 whatever ``dtype``
     (``step.py:346-359``); the plain path runs in ``dtype`` (default f32).
+    Under ``mesh`` the arrays are this rank's rows of the global batch
+    (``augment_geometry`` says which noise each mode draws).
     """
     if fused_aug not in FUSED_AUG_MODES:
         raise ValueError(f"fused_aug must be one of {FUSED_AUG_MODES}, got {fused_aug!r}")
+    _check_mesh(config, mesh)
+    ensure_replicated = _replicating(mesh)
     loss_fn = make_loss_fn(model, config, segmentation=segmentation, normalize=True,
-                           dtype=dtype)
+                           dtype=dtype, group=_data_group(mesh))
     slim_prox = _prox_lambda(config)
     seg_classes = int(config.get("seg", {}).get("num_classes", 0))
     aug_dtype = dtype or torch.float32
@@ -292,8 +377,9 @@ def make_geometry_train_step(model: torch.nn.Module, config: dict, segmentation:
         geom = args[:len(GEOMETRY_BATCH_KEYS)]
         gt, n_gt, aug_seed = args[n_geom:]
         out_hw = (int(out_hw[0]), int(out_hw[1]))
+        ensure_replicated(state)
         mode = geom[0].is_cuda if fused_aug is None else fused_aug
-        images = augment_geometry(geom, aug_seed, out_hw, mode, dtype=aug_dtype)
+        images = augment_geometry(geom, aug_seed, out_hw, mode, dtype=aug_dtype, mesh=mesh)
         seg_maps = None
         if segmentation:
             seg_slots, seg_active = args[len(GEOMETRY_BATCH_KEYS):n_geom]
@@ -301,6 +387,6 @@ def make_geometry_train_step(model: torch.nn.Module, config: dict, segmentation:
             seg_maps = seg_compose(seg_slots, src_rect, dst_rect, flip, seg_active,
                                    (out_hw[0] // 16, out_hw[1] // 16), seg_classes)
         return _update(state, model, loss_fn, images, gt, n_gt, seg_maps, ema_decay, ema_ramp,
-                       slim_prox)
+                       slim_prox, mesh)
 
     return step

@@ -1281,3 +1281,122 @@ def test_exported_folded_predict_launches_kernels_1_to_4(cuda, tmp_path):
     assert suppress.launches - nms == 1
     assert torch.equal(keep, want_keep) and 0 < int(keep.sum())
     assert float((dets - want_dets).abs().max()) <= 1e-5
+
+
+# ------------------------------------------------------------ parallelism
+
+
+def test_nccl_world_of_one_runs_the_data_parallel_step_and_predict(cuda, tmp_path):
+    """The backend the port picks for the card (NCCL) at world size 1: a
+    data-parallel geometry step and the sharded predict on a 1x1 mesh run
+    every collective on the card (NCCL refuses host tensors) and give the
+    one-process results: a sum over one rank is the identity, and the two
+    runs differ only by the card's own run-to-run rounding (cuDNN's
+    backward), so the losses and parameters within JAX's DP tolerances
+    (rtol 2e-4; one flipped AdamW step, 2.5e-3) and the predict within
+    ``test_mesh_sharded_predict_matches_single_device``'s."""
+    import torch.distributed as dist
+    from mobilenet_yolo_tpu_torch.models.mbv2_yolo import MBv2YOLO
+    from mobilenet_yolo_tpu_torch.parallel import create_mesh
+    from mobilenet_yolo_tpu_torch.parallel.mesh import default_backend, join_process_group
+    from mobilenet_yolo_tpu_torch.train import (GEOMETRY_BATCH_KEYS, create_train_state,
+                                                make_geometry_train_step)
+
+    assert default_backend(cuda) == "nccl"
+    join_process_group(f"file://{tmp_path / 'rendezvous'}", 1, 0, device="cuda")
+    try:
+        assert dist.get_backend() == "nccl" and torch.cuda.current_device() == 0
+        mesh = create_mesh(1, 1)
+        cfg = {**VOC, "yolo": {**VOC["yolo"], "ignore_thresh": [0.6, 0.56], "iou_thresh": 0.55}}
+        g = _aug_batch(3, 4, 64)
+        args = (*(g[k].to(cuda) for k in GEOMETRY_BATCH_KEYS), g["gt"].to(cuda),
+                g["n_gt"].to(cuda), 5)
+        runs = []
+        for grid in (None, mesh):
+            model = MBv2YOLO(num_classes=20, width_mult=0.35,
+                             generator=torch.Generator().manual_seed(0)).to(cuda)
+            step = make_geometry_train_step(model, cfg, fused_aug=True, mesh=grid)
+            _, metrics = step(create_train_state(model), *args, out_hw=(64, 64))
+            x = torch.rand(4, 64, 64, 3, device=cuda, generator=torch.Generator(cuda).manual_seed(1))
+            out = make_predict_fn(model, cfg, top_k=32, mesh=grid)(x, torch.tensor(0.01, device=cuda))
+            runs.append((float(metrics["loss"]), model.state_dict(), out))
+        (loss0, sd0, out0), (loss1, sd1, out1) = runs
+        assert abs(loss1 - loss0) <= 2e-4 * abs(loss0)
+        for k, v in sd0.items():
+            torch.testing.assert_close(sd1[k], v, rtol=0, atol=2.5e-3, msg=k)
+        torch.testing.assert_close(out1[0], out0[0], rtol=1e-4, atol=1e-5)
+        assert torch.equal(out1[1], out0[1])
+    finally:
+        dist.destroy_process_group()
+
+
+_GLOO_RANK = r"""
+import sys
+import numpy as np, torch, torch.distributed as dist
+from mobilenet_yolo_tpu_torch.kernels.aug_compose import aug_compose, aug_compose_reference
+from mobilenet_yolo_tpu_torch.kernels.slot_aug import slot_aug, slot_aug_reference
+from mobilenet_yolo_tpu_torch.ops.device_augment import geometric_compose, shard_seed
+from mobilenet_yolo_tpu_torch.parallel import create_mesh, global_batch, initialize_distributed
+from mobilenet_yolo_tpu_torch.train import GEOMETRY_BATCH_KEYS, random_geometry_batch
+from mobilenet_yolo_tpu_torch.train.step import augment_geometry
+
+rank, port = int(sys.argv[1]), int(sys.argv[2])
+assert initialize_distributed(f"localhost:{port}", 2, rank, backend="gloo", device="cuda")
+mesh = create_mesh(2, 1)
+rng = np.random.default_rng(5)
+batch = random_geometry_batch(rng, 4, 64)
+batch["noise_gate"] = batch["active"].copy()
+batch["noise_scale"] = np.where(batch["active"], 6.0, 0.0).astype(np.float32)
+dev = torch.device("cuda", 0)
+g = global_batch(mesh, tuple(torch.from_numpy(batch[k]).to(dev) for k in GEOMETRY_BATCH_KEYS))
+(slots, src, dst, fill, color, ffm, flip, active, gate, scale, pc, ops, facs) = g
+seed = shard_seed(2 ** 31 - 1, rank)
+launches = aug_compose.launches
+got = augment_geometry(g, 2 ** 31 - 1, (64, 64), True, mesh=mesh)
+torch.cuda.synchronize()
+assert aug_compose.launches == launches + 1
+want = aug_compose_reference(slots, seed, gate, scale, pc, ops, facs, src, dst, fill, color, ffm,
+                             flip, active, (64, 64))
+d = (got.float() - want.float()).abs()
+assert float(d.max()) <= 1.0 and float(d.mean()) < 0.05, (float(d.max()), float(d.mean()))
+launches = slot_aug.launches
+split = augment_geometry(g, 2 ** 31 - 1, (64, 64), "split", mesh=mesh)
+torch.cuda.synchronize()
+assert slot_aug.launches == launches + 1
+n = slots.shape[0] * slots.shape[1]
+planar = slot_aug_reference(slots.reshape(n, 64, 64, 3), seed, gate.reshape(n), scale.reshape(n),
+                            pc.reshape(n), ops.reshape(n, -1), facs.reshape(n, -1))
+want = geometric_compose(planar.reshape(slots.shape[0], -1, 3, 64, 64), src, dst, fill, color, ffm,
+                         flip, active, (64, 64), dtype=torch.bfloat16, planar=True)
+d = (split.float() - want.float()).abs()
+assert float(d.max()) <= 1.0 and float(d.mean()) < 0.05, (float(d.max()), float(d.mean()))
+# the two ranks' noise differs: their images are not equal
+mine = got.float().contiguous()
+other = [torch.empty_like(mine) for _ in range(2)]
+dist.all_gather(other, mine)
+assert not torch.equal(other[0], other[1])
+dist.destroy_process_group()
+"""
+
+
+def test_two_gloo_ranks_on_one_card_take_their_shard_seeds(cuda):
+    """Two gloo ranks on the one card (NCCL refuses two ranks on one
+    device), each augmenting its rows of a global geometry batch with noise
+    on: kernel 6 (and kernel 5 in "split" mode) launches under the rank's
+    ``shard_seed``, held against the twin on the same seed (the kernels'
+    tolerance above)."""
+    import os
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    root = Path(__file__).resolve().parent.parent
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (str(root), os.environ.get("PYTHONPATH")) if p))
+    procs = [subprocess.Popen([sys.executable, "-c", _GLOO_RANK, str(r), str(port)], cwd=root,
+                              env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for r in range(2)]
+    outs = [p.communicate(timeout=300)[0] for p in procs]
+    for p, out in zip(procs, outs):
+        assert p.returncode == 0, out[-4000:]

@@ -243,10 +243,6 @@ def test_predict_is_built_before_the_optimizer(tmp_path):
     assert model.backbone.stem.conv.weight.is_contiguous(memory_format=torch.channels_last)
 
 
-def test_trainer_refuses_a_mesh(tmp_path):
-    with pytest.raises(NotImplementedError, match="item 8"):
-        Trainer(_model(), CFG, CLASSES, TrainerConfig(checkpoint_dir=str(tmp_path)),
-                mesh=object(), device="cpu")
 
 
 def test_aug_seed_depends_on_epoch_and_batch_alone():
@@ -268,6 +264,21 @@ def _assert_same(a: dict, b: dict):
 def _synthetic(n, seed, bs=4):
     return [{"images": x, "gt": g, "n_gt": n_gt, "count": bs}
             for x, g, n_gt in synthetic_batches(n, bs, img_size=64, num_classes=3, seed=seed)]
+
+
+def test_trainer_on_a_one_process_mesh_matches_no_mesh(tmp_path):
+    """A 1x1 mesh in one process (no process group) trains an epoch and
+    evaluates exactly as no mesh: every reduction is this process's own."""
+    from mobilenet_yolo_tpu_torch.parallel import create_mesh
+    runs = []
+    for i, mesh in enumerate((None, create_mesh(1, 1))):
+        tcfg = TrainerConfig(epochs=1, checkpoint_dir=str(tmp_path / str(i)), nms_top_k=32)
+        trainer = Trainer(_model(), CFG, CLASSES, tcfg, mesh=mesh, verbose=False, device="cpu")
+        stats = trainer.train_epoch(_synthetic(2, 5), 0)
+        runs.append((stats["loss"], trainer.evaluate(_synthetic(1, 6))[0],
+                     _params(trainer.model)))
+    assert runs[0][:2] == runs[1][:2]
+    _assert_same(runs[0][2], runs[1][2])
 
 
 def test_eval_between_steps_leaves_the_next_step_unchanged(tmp_path):

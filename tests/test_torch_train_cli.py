@@ -1,5 +1,5 @@
 """The port's training and eval front door on the CPU: ``cli/train.py``,
-``cli/eval.py``, ``parallel/mesh.py``'s single-process seam, the HPO driver
+``cli/eval.py``, ``parallel/mesh.py`` in one process, the HPO driver
 (``hpo/random_search.py``, ``train/hpo.py``) and the copied host utilities
 (``utils/meters.py``, ``utils/logger.py``, ``utils/tb_writer.py``) against
 the JAX package's.
@@ -94,19 +94,28 @@ def test_cli_train_takes_mbv3_and_slimming(tmp_path, monkeypatch, extra):
         assert int((gamma == 0).sum()) > 0
 
 
-@pytest.mark.parametrize("extra,error,match", [
-    (["--coordinator", "localhost:1234"], NotImplementedError, "item 8"),
-    (["--num-processes", "2"], NotImplementedError, "item 8"),
-    (["--process-id", "0"], NotImplementedError, "item 8"),
-    (["--mesh", "2"], NotImplementedError, "item 8"),
-    (["--mesh", "1x2"], NotImplementedError, "item 8"),
+@pytest.mark.parametrize("extra,error", [
+    (["--coordinator", "localhost:1234"], None),
+    (["--process-id", "0"], None),
+    (["--mesh", "1x1"], None),
+    (["--num-processes", "2"], "needs --coordinator and --process-id"),
+    (["--mesh", "2"], "needs 2 devices, 1 visible"),
+    (["--mesh", "1x2"], "needs 2 devices, 1 visible"),
 ])
-def test_cli_train_refuses_what_is_not_ported(tmp_path, monkeypatch, extra, error, match):
+def test_cli_train_process_flags_in_one_process(tmp_path, monkeypatch, extra, error):
+    """The multi-process flags in one process, as the JAX CLI takes them: a
+    coordinate alone or a 1x1 mesh trains in this process, a world above 1
+    needs every coordinate, and a mesh over more ranks than there are
+    raises ``ValueError`` (``tests/test_torch_multiprocess.py`` runs them
+    over real process groups)."""
     monkeypatch.chdir(tmp_path)
     argv = ["--synthetic", "--device", "cpu", "--epochs", "1", "--steps-per-epoch", "1",
             "--batch-size", "2", "--img-size", "64", "-c", str(tmp_path / "ck"), *extra]
-    with pytest.raises(error, match=match):
-        cli_train.main(cli_train.get_params(argv))
+    if error is None:
+        assert np.isfinite(cli_train.main(cli_train.get_params(argv)))
+    else:
+        with pytest.raises(ValueError, match=error):
+            cli_train.main(cli_train.get_params(argv))
 
 
 def test_entry_points_raise_without_a_card_when_asked_for_cuda(tmp_path, monkeypatch):
@@ -133,14 +142,21 @@ def test_cli_train_flags_match_jax():
     assert got == want
 
 
-def test_mesh_seam():
+def test_mesh_in_one_process():
+    """One process without a process group: the one-device specs give no
+    mesh, ``1x1`` a mesh without groups, a wider one raises; ``shard_batch``
+    leaves this rank's batch where it is, the barrier is a no-op."""
     for spec in ("none", "off", "1", "auto", None):
         assert mesh_from_spec(spec, batch_size=8) is None
+    mesh = mesh_from_spec("1x1", batch_size=8)
+    assert mesh.shape == {"data": 1, "model": 1} and mesh.data_group is None
     for spec in ("2", "1x2", "8"):
-        with pytest.raises(NotImplementedError, match="item 8"):
+        with pytest.raises(ValueError, match="visible"):
             mesh_from_spec(spec)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        shard_batch(None, {})
+    batch = {"images": torch.zeros(2, 4, 4, 3), "n_gt": torch.zeros(2)}
+    assert shard_batch(mesh, batch) is batch
+    with pytest.raises(ValueError, match="disagree on their rows"):
+        shard_batch(mesh, {"images": torch.zeros(2, 1), "n_gt": torch.zeros(3)})
     assert sync_processes("pre_epoch") is None
 
 
