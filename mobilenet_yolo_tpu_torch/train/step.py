@@ -84,7 +84,8 @@ def make_loss_fn(model: torch.nn.Module, config: dict, segmentation: bool = Fals
     images (B, H, W, 3) NHWC; with ``normalize=True`` raw [0, 255] (uint8
     or float), normalized on the device with the config's mean/std. A
     float input keeps its dtype for that only when the model computes in
-    it (``dtype``); otherwise the normalize runs in f32 (``step.py:117-130``).
+    it (``dtype``), and a float64 model normalizes any input in float64;
+    otherwise the normalize runs in f32 (``step.py:117-130``).
     ``dtype`` bf16 or fp16 runs the forward under ``torch.autocast``.
     ``train=True`` puts the model in train mode, so the forward uses batch
     statistics and updates the running ones; ``train=False`` in eval mode.
@@ -115,8 +116,8 @@ def make_loss_fn(model: torch.nn.Module, config: dict, segmentation: bool = Fals
     def loss_fn(images, gt, n_gt, seg_maps=None, train=True):
         device = images.device
         if normalize:
-            dt = (images.dtype if images.is_floating_point() and images.dtype == dtype
-                  else torch.float32)
+            dt = (dtype if dtype == torch.float64
+                  or images.is_floating_point() and images.dtype == dtype else torch.float32)
             images = ((images.to(dt) / 255.0 - _to_device(norm_mean, device, dt))
                       / _to_device(norm_std, device, dt))
         model.train(train)
