@@ -71,9 +71,21 @@ Phases, one output line each (any failure raises and exits non-zero):
               step); beside these, MBv3-YOLO through ``cli.train
               --backbone mbv3`` (the fit recipe, ``MBV3_EPOCHS`` epochs; the
               loss ratio held to ``MBV3_LOSS_RATIO``, the mAP printed),
-              ``cli.eval`` and ``cli.infer``, each its own process; then
-              one fed epoch in this process (img/s,
-              idle share); b128 ms per mode and the b1 latency.
+              ``cli.eval``, ``cli.infer`` and ``tools.prune --backbone
+              mbv3 --ratio 0.3`` of the checkpoint, then ``cli.eval`` of the
+              cut, each its own process; then one fed epoch in this process
+              (img/s, idle share); the cut in this process: its mAP against
+              the eval CLI's (``FIT_EVAL_MAP_TOL``, both at torch's default
+              precision), its widths and parameters beside the parent's,
+              b128 requests in float32 and bf16, unfolded and folded (the
+              NMS kernel once a request, no MobileNetV2 fused kernel), a
+              float64 slice card vs CPU (``DETS_TOL``), folded float32 heads
+              against unfolded (``FOLD_F32_REL_TOL``), one geometry step
+              (``aug_compose`` once); MACC-lite's head site cut in this
+              process (``plan_prune`` / ``apply_prune``, its prunable gammas
+              scaled by seeded factors) and served at b128 float32 with a
+              float64 slice card vs CPU; b128 ms per mode and the b1
+              latency of both graphs and the cut.
 9. fit      — the port trained to a real mAP: ``python -m
               mobilenet_yolo_tpu_torch.cli.train`` as its own process from
               ``build/chip_smoke_fit/`` on the data phase's shards (the
@@ -113,10 +125,15 @@ Phases, one output line each (any failure raises and exits non-zero):
               prediction, the most frequent test-map class's among them),
               each its own process; in this process the checkpoint's mAP and
               seg mIoU card vs CPU in float64 (``EVAL_MAP_TOL``; kernel 1
-              once a batch), one segmentation geometry step on a loader
-              batch with noise off, the card in float32 (TF32 off,
-              ``aug_compose`` once) vs the CPU in float64 (its twin) at
-              ``BDD_STEP_RTOL`` (loss, ``seg_obj``, ``seg_no_obj``); the
+              once a batch), the segmentation geometry step on
+              ``BDD_STEP_BATCHES`` loader batches with noise off: the
+              path's step on the card in float32 (TF32 off, ``aug_compose``
+              once a step, its images held to the twin's at
+              ``AUG_MAX_ERR`` / ``AUG_MEAN_ERR``), and the step card vs CPU
+              (float64) on the same inputs, the twin's images and seg maps,
+              the card in float32 and float64, at ``BDD_STEP_RTOL`` (loss,
+              ``seg_obj``, ``seg_no_obj``) on ``BDD_STEP_GATE``'s reading,
+              every reading printed; the
               published BDD model (``configs/bdd100k``: 7 classes, seg 2,
               seeded, BatchNorm calibrated) served at batch 32, 416x416,
               unfolded and folded in float32 and bf16 (kernels 1-4 counted
@@ -138,7 +155,11 @@ Phases, one output line each (any failure raises and exits non-zero):
               statistics after the first step, ``DIST_*``), every rank's
               losses bit-equal, kernels 6 and 5 counted per rank. One
               tensor-parallel step (mesh 1x2) against a data-parallel one
-              on the same global batch, noise off (``TP_*``). A ``Trainer``
+              on the same global batch, noise off (``TP_*``), then both
+              again with ``slim_mode: loss`` (``DIST_SLIM_L1``): the loss
+              equal on both ranks, each rank's penalty the gathered
+              model's (``DIST_PENALTY_RTOL``), ``aug_compose`` once a step
+              and rank. A ``Trainer``
               on the 1x2 mesh: one epoch of two steps, its sharded eval and
               its checkpoint (full tensors, rank 0 writes), then a second
               ``Trainer`` resuming it, each rank restoring its slice
@@ -146,15 +167,30 @@ Phases, one output line each (any failure raises and exits non-zero):
               (every rank's slice equal to its part). The fit checkpoint's
               sharded eval, unfolded (kernel 1) and folded (kernels 1-4),
               every rank's mAP bit-equal and within ``DIST_MAP_TOL`` of
-              the fit phase's ``cli.eval``, launches per rank. One rank at
+              the fit phase's eval at the same precision (unfolded: its
+              ``cli.eval``, torch's defaults; folded: its in-process
+              folded float32 eval, TF32 off), launches per rank. One rank at
               world size 1 through the backend the port picks for the card
               (NCCL, ``join_process_group``): a data-parallel step against
               this process's and the sharded eval. The workers join
               through ``initialize_distributed`` / ``join_process_group``
               and run the steps in float32 with TF32 off, as this process
-              does, and the evals at torch's defaults, as ``cli.eval``. The
-              port makes no host copy of its own for a collective; gloo
-              takes the CUDA tensors.
+              does, and the evals at the precision of the eval each is held
+              to. The port makes no host copy of its own for a collective;
+              gloo takes the CUDA tensors.
+    hpo     — the HPO sweep beside the dist phase and the slim phase's
+              processes: ``python -m
+              mobilenet_yolo_tpu_torch.hpo.random_search`` on the bdd
+              phase's data yaml, its own process, ``HPO_TRIALS`` trials of
+              ``HPO_EPOCHS`` epochs (seed ``HPO_SEED``); ``trials.json``
+              holds the seeded draws (``sample_params``), one intermediate
+              report per in-run eval and the final report equal to the best
+              mAP; each trial's ``log.txt`` and checkpoint record its draw
+              (weight decay, learning rate); each trial's seconds printed;
+              in this process the best trial's checkpoint evaluated on the
+              card (torch's defaults, as the trial ran) within
+              ``FIT_EVAL_MAP_TOL`` of its logged best, kernel 1 once a
+              batch.
 12. slim    — Network Slimming: ``cli.train --slim-l1 1e-4`` (prox, the fit
               recipe) continuing the fit phase's run (``--resume``) for
               ``SLIM_EPOCHS`` epochs, the port's ``tools/prune.py``
@@ -177,10 +213,13 @@ Phases, one output line each (any failure raises and exits non-zero):
               mobilenet_yolo_tpu_torch.tools.quantize --eval`` as its own
               process (calibration on 4 test batches of 8, the int8
               artifact, the float vs int8 mAP A/B at the checkpoint's gate;
-              ``mAP_float`` within ``FIT_EVAL_MAP_TOL`` of the fit phase's
-              ``cli.eval`` at that gate,
-              ``mAP_int8`` above ``QUANT_MAP_SHARE`` of it, ``mAP_drop``
-              beside PERF.md's prediction); in this process the artifact
+              ``mAP_float`` within ``FIT_EVAL_MAP_TOL`` of the same float
+              arm replayed in this process as the tool runs it (torch's
+              default TF32), the replay with TF32 off within it of the fit
+              phase's folded float32 eval, ``cli.eval``'s mAP printed
+              beside, ``mAP_int8`` above ``QUANT_MAP_SHARE`` of it,
+              ``mAP_drop`` beside PERF.md's prediction); in this process
+              the artifact
               (``quant.load_int8``) served through ``QuantSim`` on the
               64 test images (its mAP the tool's, kernel 1 once a batch)
               and its heads card vs CPU in float64 on 4 images
@@ -280,9 +319,12 @@ fit phase's in-process part (``fit_launches``, kernels 1-4 and 6), those of
 the mbv3 and slim phases (``mbv3_launches``, ``slim_launches``), of the
 quant phase's in-process int8 graph and of the export phase's fresh
 serving process (``quant_launches``, ``export_launches``), rank 0's on the
-dist phase's data-parallel steps and sharded evals (``dist_launches``),
+dist phase's data-parallel steps, its slim-loss steps and sharded evals
+(``dist_launches``),
 those of the bdd phase's in-process path (``bdd_launches``: its float64
-eval, its step and its 416x416 requests), the fused kernels' sums per b32
+eval, its steps and its 416x416 requests), the MBv3 cuts' path in the
+mbv3 phase (``mbv3_cut_launches``), the HPO phase's eval of the best
+trial (``hpo_launches``), the fused kernels' sums per b32
 416x416 BDD predict (``bdd416_ms``, ``bdd416_plain_ms``,
 ``bdd416_library_ms``, ``bdd416_library_device_ms``, ``bdd416_bound_ms``
 and their ``bdd416_bf16_*`` twins), and, for
@@ -303,12 +345,13 @@ two programs, npz and reverse conversion) run at once, and some phases'
 processes run beside other work that is checked, not timed: both
 fabricated trees and their shards beside the build and the first phases,
 ``mbv3``'s CLIs beside its requests and steps, ``bdd``'s beside the fit
-phase's processes, ``slim``'s beside the dist phase.
+phase's processes, ``slim``'s and the HPO sweep beside the dist phase.
 
     python3 chip_smoke.py --only fit bdd    # the build, then these phases
 
-runs the named phases alone (``fit`` on freshly built VOC shards) and
-prints neither the kernels line nor the result.
+runs the named phases alone (of ``mbv3``, ``fit``, ``bdd``, ``dist``,
+``hpo``; ``mbv3`` and ``fit`` on freshly built VOC shards, ``dist`` after
+``fit``) and prints neither the kernels line nor the result.
 
 The line before the last is the per-kernel JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX; yaml is read
@@ -377,6 +420,8 @@ from mobilenet_yolo_tpu_torch.train import (GEOMETRY_BATCH_KEYS, create_train_st
                                             random_geometry_batch)
 from mobilenet_yolo_tpu_torch.train.checkpoints import CheckpointManager, served_state_dict
 from mobilenet_yolo_tpu_torch.train.loop import Trainer, TrainerConfig
+from mobilenet_yolo_tpu_torch.train.state import TrainState
+from mobilenet_yolo_tpu_torch.ops.device_augment import seg_compose
 from mobilenet_yolo_tpu_torch.train.step import augment_geometry
 from mobilenet_yolo_tpu_torch.train.synthetic import random_program
 from mobilenet_yolo_tpu_torch.utils.profiling import (BF16_FLOPS, F32_FLOPS, HBM_BYTES_PER_S,
@@ -592,6 +637,15 @@ MBV3_ITERS = 10
 MBV3_CALIB = 32
 MBV3_DTYPES = {"f32": (False, None), "bf16": (False, torch.bfloat16),
                "folded_f32": (True, None), "folded_bf16": (True, torch.bfloat16)}
+# the pruned MBv3: the CLI's checkpoint cut by tools/prune.py, and
+# MACC-lite's head site cut in this process; the cut's evals, its requests
+# and the float64 slices at a gate low enough to keep detections of a
+# 3-epoch model (at the run's own gate, 0.11, it keeps none: mAP 0)
+MBV3_CUT = 0.3
+MBV3_CUT_CONF = 0.01
+# the float64 slices' gate lies in a gap of the CPU's scores at least this
+# wide: far above the float32 decode's rounding (~1e-7 on scores in [0, 1])
+SLICE_GAP = 1e-5
 # the slim phase: Network Slimming with the port's train CLI (prox, the fit
 # recipe), continuing the fit phase's plain run for SLIM_EPOCHS epochs; its
 # tools/prune.py on the plain checkpoint and on the slim one, the cuts
@@ -636,9 +690,17 @@ DIST_BN_TOL = 2e-4
 TP_LOSS_RTOL = 3e-4
 TP_PARAM_ATOL = 2.5e-3
 # each rank's half batch may take another cuDNN algorithm than the fit
-# phase's one process: the mAP within 1e-3 of its cli.eval, bit-equal
-# across ranks
+# phase's one process: the mAP within 1e-3 of the fit phase's eval at the
+# same precision (unfolded: its cli.eval, torch's defaults; folded: its
+# in-process folded float32 eval, TF32 off), bit-equal across ranks
 DIST_MAP_TOL = 1e-3
+# the TP step with slim_mode loss: at 1e-4 over the ~8.4k prunable gammas
+# (|gamma| ~1 at init) the penalty adds ~0.8 to the loss, so a penalty
+# counted on a rank's slices alone, or twice, shows far past TP_LOSS_RTOL;
+# each rank's penalty (its float32 sums) against the gathered model's in
+# float64
+DIST_SLIM_L1 = 1e-4
+DIST_PENALTY_RTOL = 1e-6
 SLIM_DIR = ROOT / "build" / "chip_smoke_slim"
 SLIM_EPOCHS = 8
 SLIM_FT_EPOCHS = 2
@@ -675,14 +737,19 @@ BDD_LOSS_RATIO = 0.2
 BDD_STEP_BATCH, BDD_STEP_SIZE = 4, 160
 # the float64 evaluator, card vs CPU, on the first test images
 BDD_EVAL_BATCH, BDD_EVAL_BATCHES = 4, 2
-# one seg geometry step, the card in float32 (TF32 off, aug_compose) vs the
-# CPU in float64 (aug_compose's twin), on the trained weights: the two
-# bf16 images differ where the kernel's and the twin's float32 arithmetic
-# tips a rounding by one bf16 spacing (up to 1 of 255; AUG_MEAN_ERR allows
-# a mean of 0.05), and the train-mode BatchNorm of a 4-image batch
-# amplifies float32's rounding: three runs on the card read up to 2.7e-4
-# (loss), 1.3e-4 and 1.6e-4 (the seg means), with 7e-5 of the image values
-# one spacing apart
+# the seg geometry step on BDD_STEP_BATCHES loader batches, held card vs
+# CPU (float64) on the same inputs, the twin's images and seg maps, at
+# BDD_STEP_RTOL (loss, seg_obj, seg_no_obj) on the reading BDD_STEP_GATE
+# names: the card's float32 step. The path's step (float32 from the
+# kernel's images, held to the twin's at AUG_MAX_ERR / AUG_MEAN_ERR) against
+# the CPU read 5.1e-6 to 6.1e-4 over 8 runs, near the bar. On an NVIDIA H100
+# 80GB HBM3 the images made that tail: from the twin's images the card's
+# float32 step read <= 3.2e-7 over 5 batches, its float64 step <= 1.9e-7
+# (the loss is float32 on both), while the kernel's images read 4.7e-5 to
+# 2.2e-4 (their values up to one bf16 spacing apart; what in the loss
+# amplifies that was not measured)
+BDD_STEP_BATCHES = 5
+BDD_STEP_GATE = "f32_twin"
 BDD_STEP_RTOL = 1e-3
 # the published model served at batch 32, 416x416 (its block shapes 208,
 # 104, 52, 26 and 13 are the VOC model's 176-11 at another size)
@@ -690,6 +757,10 @@ BDD_SERVE_CONFIG = load_yaml(default_data_yaml("bdd100k/config.yaml"))
 BDD_SERVE_BATCH = 32
 BDD_SERVE_DTYPES = {"f32": (False, None), "bf16": (False, torch.bfloat16),
                     "folded_f32": (True, None), "folded_bf16": (True, torch.bfloat16)}
+# the HPO sweep (hpo/random_search.py) as its own process on the bdd
+# phase's data yaml: 2 trials of 2 epochs (one in-run eval each), seeded
+HPO_DIR = ROOT / "build" / "chip_smoke_hpo"
+HPO_TRIALS, HPO_EPOCHS, HPO_SEED = 2, 2, 5
 # the quant phase: the fit phase's checkpoint through the port's quantize
 # CLI (its own process): calibration on 4 test batches of 8, the float vs
 # int8 mAP A/B at the checkpoint's gate; the artifact then served in this
@@ -1484,7 +1555,8 @@ def phase_fit(device, smi: str, settle=None) -> dict:
     (kernel 6). ``settle`` (if given) is called before the in-process part,
     so that the card and the host are this process's again. Returns the
     kernels' launches in this process and the eval CLI's result at the
-    checkpoint's own gate."""
+    checkpoint's own gate, with this process's folded float32 mAP at that
+    gate (``folded_f32_mAP``)."""
     t_phase = time.perf_counter()
     shutil.rmtree(FIT_DIR, ignore_errors=True)
     FIT_DIR.mkdir(parents=True)
@@ -1540,7 +1612,10 @@ def phase_fit(device, smi: str, settle=None) -> dict:
     if settle is not None:
         settle()
     # 4: the trained weights in this process: test mAP per dtype, unfolded
-    # and folded, at the checkpoint's gate; the kernels' launches from here on
+    # and folded, at the checkpoint's gate, TF32 off; the kernels' launches
+    # from here on
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
     for counted in LAUNCH_COUNTERS:
         counted.launches = 0
     model = build_model(mc, device=device)
@@ -1612,7 +1687,7 @@ def phase_fit(device, smi: str, settle=None) -> dict:
     check(min(launches.values()) > 0, f"every kernel of the fit path launched: {launches}")
     report("fit", fit_launches=launches, phase_seconds=f"{time.perf_counter() - t_phase:.1f}",
            card=f"'{smi}'")
-    return launches, own
+    return launches, dict(own, folded_f32_mAP=maps_by["folded_f32"])
 
 
 def fed_epoch(phase: str, name: str, trainer: Trainer, mc: dict, data: dict, workers: int,
@@ -1686,8 +1761,10 @@ def cli_eval(data_yaml: str, checkpoint: str, batch: int, *extra: str) -> dict:
 def mbv3_cli(smi: str) -> tuple[dict, object, Path]:
     """MBv3-YOLO through the train, eval and infer CLIs on the data phase's
     shards, each its own process: the fit recipe for ``MBV3_EPOCHS`` epochs,
-    the loss ratio held to ``MBV3_LOSS_RATIO``, the mAP printed. Returns the
-    data yaml, the config and the checkpoint directory."""
+    the loss ratio held to ``MBV3_LOSS_RATIO``, the mAP printed; beside the
+    eval and infer CLIs, ``tools.prune --backbone mbv3`` cuts the
+    checkpoint. Returns the data yaml, the config, the checkpoint directory
+    and the cut's."""
     data_yaml = str(DATA_DIR / "data.yaml")
     data, cfg = load_yaml(data_yaml), load_config(data_yaml)
     mc = cfg.model
@@ -1699,18 +1776,30 @@ def mbv3_cli(smi: str) -> tuple[dict, object, Path]:
                                     f"{ratio:.4f} <= {MBV3_LOSS_RATIO}")
     first = Path(data["test_dataset_path"]["lists"][0]).read_text().split()[0]
     image = DATA_DIR / "JPEGImages" / f"{first}.jpg"
-    ev, out = run_modules(
+    cut = MBV3_DIR / f"cut{round(MBV3_CUT * 100)}"
+    ev, out, pruned = run_modules(
         ("mobilenet_yolo_tpu_torch.cli.eval", "-y", data_yaml, "-c", str(ckpt), "--batch-size",
          str(mc["batch_size"]), "--backbone", "mbv3"),
         ("mobilenet_yolo_tpu_torch.cli.infer", "--backbone", "mbv3", "-y", data_yaml, "-c",
-         str(ckpt), "-i", str(image), "--out-dir", str(MBV3_DIR / "infer")))
+         str(ckpt), "-i", str(image), "--out-dir", str(MBV3_DIR / "infer")),
+        ("mobilenet_yolo_tpu_torch.tools.prune", "--backbone", "mbv3", "-y", data_yaml, "-c",
+         str(ckpt), "--ratio", str(MBV3_CUT), "--out", str(cut)))
     ev = json.loads(ev)
     check((MBV3_DIR / "infer" / f"{image.stem}_result.jpg").is_file(),
           "cli/infer served the MBv3 checkpoint")
     report("mbv3", what="cli", loss_ratio=f"{ratio:.4f}", bar_ratio=MBV3_LOSS_RATIO,
            log_mAP=f"{rows[-1, 2]:.6f}", eval_mAP=f"{ev['mAP']:.6f}", val_conf=ev["val_conf"],
            held_mAP=False, infer=out.strip().splitlines()[1], card=f"'{smi}'")
-    return data, cfg, ckpt
+    check(all((cut / name).is_file() for name in ("params.npz", "data.yaml", "summary.json")),
+          f"tools.prune --backbone mbv3 wrote the cut:\n{pruned[-2000:]}")
+    return data, cfg, ckpt, cut
+
+
+def cut_eval_cli(cut: Path, batch: int) -> dict:
+    """The MBv3 cut scored by the eval CLI at ``MBV3_CUT_CONF``, its own
+    process."""
+    return cli_eval(str(cut / "data.yaml"), str(cut / "params.npz"), batch, "--backbone", "mbv3",
+                    "--val-conf", str(MBV3_CUT_CONF))
 
 
 def phase_mbv3(device, smi: str) -> dict:
@@ -1752,7 +1841,7 @@ def phase_mbv3(device, smi: str) -> dict:
         cpu64 = copy.deepcopy(model).cpu().double()
         model = model.to(memory_format=torch.channels_last)
         folded = fold_batchnorm(model)
-        models[backbone] = (model, folded)
+        models[backbone] = (model, folded, VOC_CONFIG)
         predict = {name: make_predict_fn(folded if fold else model, VOC_CONFIG, dtype=dtype)
                    for name, (fold, dtype) in MBV3_DTYPES.items()}
         results = {name: f(x128, val_conf) for name, f in predict.items()}
@@ -1805,10 +1894,15 @@ def phase_mbv3(device, smi: str) -> dict:
           f"geometry step ({steps})")
     fused = {name: fn.launches for name, fn in FUSED.items()}
     check(not any(fused.values()), f"the folded MBv3 graphs ran no MBv2 fused kernel: {fused}")
+    # MACC-lite's head site, cut in this process while the CLIs run
+    before = suppress.launches
+    cut_macc_head(device, models, calib, x128)
+    macc_requests = suppress.launches - before
 
     # the CLIs' processes, started with the phase, have run beside the above
-    data, cfg, ckpt = cli.result()
-    background.shutdown()
+    t0 = time.perf_counter()
+    data, cfg, ckpt, cut = cli.result()
+    waited = time.perf_counter() - t0
     mc = cfg.model
 
     # one fed epoch of the trained MBv3 in this process
@@ -1821,20 +1915,214 @@ def phase_mbv3(device, smi: str) -> dict:
                       verbose=False, device_normalize=True, device_geometry=True, device=device)
     fed_epoch("mbv3", "loader", trainer, mc, data, 0, MBV3_EPOCHS, device, smi)
     torch.cuda.synchronize()
-    launches = {"nms_suppress": suppress.launches, "aug_compose": aug_compose.launches}
+    # the MACC-lite cut's requests count on the cuts' path
+    launches = {"nms_suppress": suppress.launches - macc_requests,
+                "aug_compose": aug_compose.launches}
+
+    # the pruned MBv3 (the cut of the CLI's checkpoint) in this process,
+    # beside the eval CLI scoring it (checked, not timed)
+    t0 = time.perf_counter()
+    cut_eval = background.submit(cut_eval_cli, cut, mc["batch_size"])
+    for counted in LAUNCH_COUNTERS:
+        counted.launches = 0
+    models["mbv3_cut30"], cut_launches = serve_mbv3_cut(device, smi, cut, cut_eval, data, cfg,
+                                                         x128, geom)
+    background.shutdown()
+    cut_launches["nms_suppress"] += macc_requests
+    check(not any(fn.launches for fn in FUSED.values()),
+          "the MBv3 cut ran no MBv2 fused kernel")
+    report("mbv3", what="cut_seconds", waited_for_cli_s=f"{waited:.1f}",
+           cut_s=f"{time.perf_counter() - t0:.1f}")
 
     # timing: b128 per mode, b1 latency (CUDA events, TF32 off)
-    for backbone, (model, folded) in models.items():
+    for backbone, (model, folded, net_cfg) in models.items():
         times = {}
         for name, (fold, dtype) in MBV3_DTYPES.items():
-            f = make_predict_fn(folded if fold else model, VOC_CONFIG, dtype=dtype)
+            f = make_predict_fn(folded if fold else model, net_cfg, dtype=dtype)
             times[f"b{BATCH}_{name}_ms"] = f"{cuda_ms(lambda: f(x128, val_conf), iters=MBV3_ITERS):.3f}"
-        f = make_predict_fn(model, VOC_CONFIG)
+        f = make_predict_fn(model, net_cfg)
         times["b1_f32_ms"] = f"{cuda_ms(lambda: f(x128[:1], val_conf), iters=20):.3f}"
         report("timing", what=f"{backbone}_predict", **times, tf32=False, card=f"'{smi}'")
-    report("mbv3", mbv3_launches=launches, phase_seconds=f"{time.perf_counter() - t_phase:.1f}",
-           card=f"'{smi}'")
-    return launches
+    report("mbv3", mbv3_launches=launches, mbv3_cut_launches=cut_launches,
+           phase_seconds=f"{time.perf_counter() - t_phase:.1f}", card=f"'{smi}'")
+    return launches, cut_launches
+
+
+def serve_mbv3_cut(device, smi: str, cut: Path, cut_eval, data: dict, cfg,
+                   x128: torch.Tensor, geom: dict) -> tuple[tuple, dict]:
+    """The MBv3 cut (``tools.prune --backbone mbv3`` of the CLI's checkpoint,
+    in ``cut``): its test mAP in this process against the eval CLI's
+    (``cut_eval``, the future of ``cut_eval_cli``; both at torch's default
+    precision), its widths and parameters beside the parent's; served at
+    b128 (the test images twice) in float32 and bf16, unfolded and folded,
+    the NMS kernel once a request; a float64 slice card vs CPU, folded
+    float32 heads against unfolded; one geometry step (``aug_compose``
+    once). Returns the cut's (model, folded, config) and the launches."""
+    mc = cfg.model
+    bs = mc["batch_size"]
+    cut_cfg = load_config(str(cut / "data.yaml"))
+    mcc = cut_cfg.model
+    summary = json.loads((cut / "summary.json").read_text())
+    model = load_variables(build_model(mcc, "mbv3", device=device),
+                           str(cut / "params.npz")).eval()
+    parent = build_model(mc, "mbv3", device="cpu")
+    widths = {name: [g.size for g in prune.prunable_gammas(net.state_dict()).values()]
+              for name, net in (("parent", parent), ("cut", model))}
+    check(prune.param_count(model) == summary["params_after"] < summary["params_before"]
+          == prune.param_count(parent), f"the cut's parameters {summary}")
+    test = Loader(DetectionDataset(records.RecordReader(data["test_dataset_path"]["lmdb"]),
+                                   phase="test"), bs, [[mc["img_w"], mc["img_h"]]],
+                  mc["normalize"]["mean"], mc["normalize"]["std"], shuffle=False,
+                  pad_final=False)
+    n_eval = -(-DATA_TEST // bs)
+    # at torch's default precision, as the eval CLI's process ran
+    torch.backends.cudnn.allow_tf32 = True
+    res = evaluate_detection(make_predict_fn(model, mcc, top_k=FIT_TOP_K), test, cut_cfg.classes,
+                             MBV3_CUT_CONF, batch_size=bs, device=device)
+    torch.cuda.synchronize()
+    torch.backends.cudnn.allow_tf32 = False
+    check(suppress.launches == n_eval, f"the cut's eval: suppress once a batch ({suppress.launches})")
+
+    # served at b128 per mode, a float64 slice card vs CPU, folded vs unfolded
+    images = torch.from_numpy(np.concatenate([b["images"] for b in test])).to(device)
+    x = torch.cat([images] * -(-BATCH // len(images)))[:BATCH]
+    cpu64 = copy.deepcopy(model).cpu().double()
+    model = model.to(memory_format=torch.channels_last)
+    folded = fold_batchnorm(model)
+    served = serve_cut("mbv3_cut30", model, folded, mcc, x, cpu64, MBV3_CUT_CONF, MBV3_DTYPES)
+    # one geometry step at batch 32
+    trained = copy.deepcopy(model)
+    before = {k: v.detach().clone() for k, v in trained.state_dict().items()}
+    _, m = make_geometry_train_step(trained, mcc)(create_train_state(trained),
+                                                  *step_args(geom, AUG_SEED), out_hw=(SIZE, SIZE))
+    torch.cuda.synchronize()
+    moved = sum(not torch.equal(v, before[k]) for k, v in trained.state_dict().items())
+    check(np.isfinite(float(m["loss"])) and moved > 0 and aug_compose.launches == 1,
+          f"the cut's geometry step: loss {float(m['loss'])}, {moved} tensors moved, "
+          f"aug_compose {aug_compose.launches}")
+    report("mbv3", what="cut_step", batch=TRAIN_BATCH, loss=f"{float(m['loss']):.5f}",
+           tensors_moved=moved, launches=aug_compose.launches)
+    launches = {"nms_suppress": suppress.launches, "aug_compose": aug_compose.launches}
+    check(launches == {"nms_suppress": n_eval + served, "aug_compose": 1},
+          f"the cut's launches {launches}: the scan once an eval batch and a request")
+
+    cli = cut_eval.result()
+    err = abs(res["mAP"] - cli["mAP"])
+    report("mbv3", what="cut_eval", ratio=MBV3_CUT, hidden_parent=widths["parent"],
+           hidden_cut=widths["cut"], params_parent=summary["params_before"],
+           params_cut=summary["params_after"], gate=MBV3_CUT_CONF, mAP=f"{res['mAP']:.6f}",
+           cli_mAP=f"{cli['mAP']:.6f}", abs_err=f"{err:.3g}", tol=FIT_EVAL_MAP_TOL,
+           margin=f"{FIT_EVAL_MAP_TOL - err:.3g}", held_mAP=False, card=f"'{smi}'")
+    check(err <= FIT_EVAL_MAP_TOL, f"the cut's mAP here {res['mAP']} vs cli.eval's {cli['mAP']}")
+    return (model, folded, mcc), launches
+
+
+def cut_macc_head(device, models: dict, calib: torch.Tensor, x128: torch.Tensor) -> None:
+    """MACC-lite's head site: the phase's seeded, calibrated MACC-lite with
+    its prunable gammas scaled by seeded factors (at init every gamma is 1,
+    which ties every channel), cut by ``plan_prune`` / ``apply_prune`` with
+    its ``backbone_head``, its BatchNorm statistics calibrated again on
+    ``calib`` (the scaled gammas moved every layer's input; uncalibrated,
+    its scores saturate and tie), served at b128 float32 with a float64
+    slice card vs CPU."""
+    macc = copy.deepcopy(models["mbv3_macc"][0]).cpu()
+    gen = torch.Generator().manual_seed(SEED + 21)
+    params = dict(macc.named_parameters())
+    with torch.no_grad():
+        for site in prune.prunable_gammas(macc.state_dict()):
+            g = params[prune._gamma_key(site)]
+            g.mul_(0.5 + torch.rand(g.shape, generator=gen))
+    state = {k: v.detach() for k, v in macc.state_dict().items()}
+    plan = prune.plan_prune(state, MBV3_CUT)
+    macc_state, macc_plan = prune.apply_prune(state, plan)
+    check(macc_plan.get("backbone_head", 0) < state["backbone.head_conv.bn.weight"].numel(),
+          f"the MACC-lite plan cuts the head site: {macc_plan}")
+    macc_cut = build_model(dict(VOC_CONFIG, prune=macc_plan), "mbv3_macc", device="cpu")
+    macc_cut.load_state_dict(macc_state, strict=True)
+    macc_cut = macc_cut.to(device)
+    calibrate_bn(macc_cut, calib)
+    macc64 = copy.deepcopy(macc_cut).cpu().double().eval()
+    macc_cut = macc_cut.eval().to(memory_format=torch.channels_last)
+    serve_cut("mbv3_macc_cut30", macc_cut, None, VOC_CONFIG, x128, macc64, VAL_CONF,
+              {"f32": (False, None)})
+    report("mbv3", what="macc_head_cut", head=macc_plan["backbone_head"],
+           head_parent=state["backbone.head_conv.bn.weight"].numel(),
+           hidden=macc_plan["backbone_hidden"], params_parent=prune.param_count(macc),
+           params_cut=prune.param_count(macc_cut))
+
+
+def serve_cut(name: str, model, folded, mc: dict, x: torch.Tensor, cpu64, gate: float,
+              dtypes: dict) -> int:
+    """A cut served at ``x``'s batch per mode of ``dtypes`` (the NMS kernel
+    once a request), the whole slice card vs CPU in float64 on two images,
+    and with a folded model its float32 heads against the unfolded ones
+    (``FOLD_F32_REL_TOL``). The slice's gate lies in a gap of the CPU's
+    scores (``slice_gate``), and its detections above the gate and those
+    kept are held as sets (``rows_err``, ``DETS_TOL``): a trained model's
+    scores crowd, and the float32 decode may order two that lie a few ulp
+    apart otherwise on each device. Returns the requests made."""
+    device = x.device
+    val_conf = torch.tensor(gate, device=device)
+    before = suppress.launches
+    for mode, (fold, dtype) in dtypes.items():
+        dets, keep = make_predict_fn(folded if fold else model, mc, dtype=dtype)(x, val_conf)
+        check(bool(torch.isfinite(dets).all()), f"{name} {mode}: detections finite")
+        report("mbv3", cut=name, request=f"{mode}_b{x.shape[0]}", kept=int(keep.sum()),
+               valid=int((dets[..., 4] > val_conf).sum()))
+    torch.cuda.synchronize()
+    check(suppress.launches - before == len(dtypes), f"{name}: suppress once a request")
+    small = x[:2].double()
+    predict64 = make_predict_fn(cpu64, mc)
+    low = slice_gate(predict64(small.cpu(), torch.tensor(0.0, dtype=torch.float64))[0][..., 4])
+    want_dets, want_keep = predict64(small.cpu(), torch.tensor(low, dtype=torch.float64))
+    dets, keep = (t.cpu() for t in make_predict_fn(cpu64.to(device), mc)(
+        small, torch.tensor(low, dtype=torch.float64, device=device)))
+    errs = [rows_err(got[got[:, 4] > low], want[want[:, 4] > low])
+            for got, want in zip(dets, want_dets)]
+    errs += [rows_err(got[k], want[k_want])
+             for got, k, want, k_want in zip(dets, keep, want_dets, want_keep)]
+    dets_err = max(errs)
+    check(bool(want_keep.any()) and dets_err <= DETS_TOL,
+          f"{name}: float64 slice above gate {low:.6g} and kept, card vs CPU {dets_err:.3g}")
+    fold_err = "none"
+    if folded is not None:
+        heads = (head_logits(folded, x[:2]), head_logits(model, x[:2]))
+        fold_err = max(rel_err(heads[0][k], heads[1][k]) for k in HEADS)
+        check(fold_err <= FOLD_F32_REL_TOL,
+              f"{name}: folded f32 heads vs unfolded {fold_err:.3g} <= {FOLD_F32_REL_TOL}")
+        fold_err = f"{fold_err:.3g}"
+    report("mbv3", cut=name, slice_gate=f"{low:.6g}", valid=int((want_dets[..., 4] > low).sum()),
+           kept=int(want_keep.sum()), dets_max_abs_err=f"{dets_err:.3g}", tol=DETS_TOL,
+           folded_vs_unfolded_f32_rel=fold_err, fold_tol=FOLD_F32_REL_TOL)
+    return len(dtypes) + 1
+
+
+def slice_gate(scores: torch.Tensor) -> float:
+    """A gate for a float64 slice from the CPU's top-K scores (images, K):
+    the middle of the widest gap between two of the pooled scores ranked
+    K/2 to 3K/4, so that each image keeps fewer than K rows above it (the
+    top-K boundary cannot flip a row in) and no score lies near it."""
+    k = scores.shape[1]
+    s = scores.flatten().sort(descending=True).values[k // 2:3 * k // 4 + 1]
+    i = int((s[:-1] - s[1:]).argmax())
+    check(float(s[i] - s[i + 1]) > SLICE_GAP, f"the slice's scores leave a gap: {s[i]}, {s[i + 1]}")
+    return float(s[i] + s[i + 1]) / 2
+
+
+def rows_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    """The largest difference between two sets of detection rows (N, 7),
+    each row of ``want`` (by descending score) matched to the closest row
+    of ``got`` left; inf where their counts differ."""
+    if got.shape != want.shape:
+        return float("inf")
+    left = list(range(got.shape[0]))
+    worst = 0.0
+    for row in want[want[:, 4].argsort(descending=True)]:
+        d = (got[left] - row).abs().amax(dim=1)
+        j = int(d.argmin())
+        worst = max(worst, float(d[j]))
+        left.pop(j)
+    return worst
 
 
 # ------------------------------------------------------------------ dist --
@@ -1996,48 +2284,79 @@ def phase_bdd(device, smi: str, cli: dict | None = None) -> dict:
     check(res["card"]["tp"] == res["cpu"]["tp"] and res["card"]["fp"] == res["cpu"]["fp"],
           "bdd eval TP/FP, card == CPU")
 
-    # 5: one segmentation geometry step on a loader batch, noise off: the
-    # card in float32 through aug_compose, the CPU in float64 through its twin
+    # 5: the segmentation geometry step on BDD_STEP_BATCHES loader batches,
+    # noise off. The path's step: the card in float32 (TF32 off) through
+    # aug_compose, whose images are held to its twin's at the aug bars. The
+    # step card vs CPU on the same inputs (the twin's images, the seg maps):
+    # the CPU in float64, the card in float32 and in float64; the gate is
+    # BDD_STEP_GATE's reading. The path step against the CPU (the kernel's
+    # images against the twin's) is printed beside them.
     norm = mc["normalize"]
     ds = DetectionDataset(records.RecordReader(data["trainval_dataset_path"]["lmdb"]),
                           phase="train", expand_scale=mc["expand_scale"], has_seg=True,
                           seg_num_classes=mc["seg"]["num_classes"], apply_noise=False,
                           apply_photometric=False)
-    batch = next(iter(Loader(ds, BDD_STEP_BATCH, [[BDD_STEP_SIZE, BDD_STEP_SIZE]], norm["mean"],
-                             norm["std"], mosaic_num=mc["mosaic_num"], seed=SEED, prefetch=0,
-                             device_geometry=True)))
-    check(not batch["noise_gate"].any() and batch["seg_active"].any(),
-          "the step's batch: noise off, seg slots staged")
+    loader = Loader(ds, BDD_STEP_BATCH, [[BDD_STEP_SIZE, BDD_STEP_SIZE]], norm["mean"],
+                    norm["std"], mosaic_num=mc["mosaic_num"], seed=SEED, prefetch=0,
+                    device_geometry=True)
     keys = (*GEOMETRY_BATCH_KEYS, "seg_slots", "seg_active", "gt", "n_gt")
-    metrics, images, before = {}, {}, aug_compose.launches
-    for side, dev, dtype in (("card", device, None), ("cpu", "cpu", torch.float64)):
-        stepped = copy.deepcopy(model).to(dev, dtype or torch.float32)
-        step = make_geometry_train_step(stepped, mc, segmentation=True, fused_aug=True,
-                                        dtype=dtype)
-        t = batch_to_device(batch, dev)
-        _, m = step(create_train_state(stepped), *(t[k] for k in keys), AUG_SEED,
-                    out_hw=batch["out_size"])
-        metrics[side] = {k: float(m[k]) for k in ("loss", "seg_obj", "seg_no_obj")}
-        check(all(np.isfinite(list(metrics[side].values()))), f"bdd {side} step {metrics[side]}")
-        if side == "card":
-            torch.cuda.synchronize()
-            check(aug_compose.launches - before == 1, "bdd step: aug_compose launched once")
-            before = aug_compose.launches
-        images[side] = (aug_compose if side == "card" else aug_compose_reference)(
-            *compose_args(t, AUG_SEED), tuple(batch["out_size"])).float().cpu()
-    # the comparison's launch is not the path's
-    aug_compose.launches = before
-    step_err = {k: abs(metrics["card"][k] - v) / abs(v) for k, v in metrics["cpu"].items()}
-    image_diff = (images["card"] - images["cpu"]).abs()
-    report("bdd", what="seg_step", batch=BDD_STEP_BATCH, size=BDD_STEP_SIZE,
-           **{f"{k}_card": f"{metrics['card'][k]:.8f}" for k in metrics["card"]},
-           **{f"{k}_cpu": f"{v:.8f}" for k, v in metrics["cpu"].items()},
-           **{f"{k}_rel": f"{v:.3g}" for k, v in step_err.items()}, rtol=BDD_STEP_RTOL,
-           image_values_differing=f"{float((image_diff > 0).float().mean()):.4g}",
-           image_max_abs_diff=float(image_diff.max()),
-           seg_obj_above_no_obj=metrics["card"]["seg_obj"] > metrics["card"]["seg_no_obj"])
-    check(max(step_err.values()) <= BDD_STEP_RTOL,
-          f"bdd seg step card vs CPU float64 {step_err} <= {BDD_STEP_RTOL}")
+    sides = {"f32_kernel": (device, None), "f32_twin": (device, None),
+             "f64_twin": (device, torch.float64), "cpu": ("cpu", torch.float64)}
+    readings = {name: [] for name in sides if name != "cpu"}
+    image_errs, steps = [], 0
+    for batch, _ in zip(loader, range(BDD_STEP_BATCHES), strict=False):
+        check(not batch["noise_gate"].any() and batch["seg_active"].any(),
+              "the step's batch: noise off, seg slots staged")
+        out_hw = tuple(batch["out_size"])
+        t = {dev: batch_to_device(batch, dev) for dev in (device, "cpu")}
+        twin = aug_compose_reference(*compose_args(t["cpu"], AUG_SEED), out_hw)
+        seg_maps = seg_compose(t["cpu"]["seg_slots"], t["cpu"]["src_rect"],
+                               t["cpu"]["dst_rect"], t["cpu"]["flip"], t["cpu"]["seg_active"],
+                               (out_hw[0] // 16, out_hw[1] // 16), mc["seg"]["num_classes"])
+        metrics = {}
+        for name, (dev, dtype) in sides.items():
+            stepped = copy.deepcopy(model).to(dev, dtype or torch.float32)
+            state = create_train_state(stepped)
+            if name == "f32_kernel":
+                step = make_geometry_train_step(stepped, mc, segmentation=True, fused_aug=True)
+                before = aug_compose.launches
+                _, m = step(state, *(t[dev][k] for k in keys), AUG_SEED, out_hw=out_hw)
+                torch.cuda.synchronize()
+                check(aug_compose.launches - before == 1, "bdd step: aug_compose launched once")
+                steps += 1
+            else:
+                step = make_train_step(stepped, mc, segmentation=True, normalize=True,
+                                       dtype=dtype)
+                _, m = step(state, twin.to(dev), t[dev]["gt"], t[dev]["n_gt"], seg_maps.to(dev))
+            metrics[name] = {k: float(m[k]) for k in ("loss", "seg_obj", "seg_no_obj")}
+            check(all(np.isfinite(list(metrics[name].values()))),
+                  f"bdd {name} step {metrics[name]}")
+        for name in readings:
+            readings[name].append(max(abs(metrics[name][k] - v) / abs(v)
+                                      for k, v in metrics["cpu"].items()))
+        # the kernel's images against the twin's (the comparison's launch is
+        # not the path's)
+        before = aug_compose.launches
+        image_errs.append(aug_err(aug_compose(*compose_args(t[device], AUG_SEED), out_hw).cpu(),
+                                  twin, "bdd step images"))
+        aug_compose.launches = before
+        report("bdd", what="seg_step", batch=BDD_STEP_BATCH, size=BDD_STEP_SIZE,
+               **{f"{k}_{name}": f"{v:.8f}" for name, m in metrics.items()
+                  for k, v in m.items()},
+               **{f"{name}_rel": f"{v[-1]:.3g}" for name, v in readings.items()},
+               image_max_abs_diff=image_errs[-1],
+               seg_obj_above_no_obj=metrics["f32_kernel"]["seg_obj"]
+               > metrics["f32_kernel"]["seg_no_obj"])
+    worst = {name: max(v) for name, v in readings.items()}
+    report("bdd", what="seg_step_card_vs_cpu", steps=steps,
+           **{f"{name}_max_rel": f"{v:.3g}" for name, v in worst.items()},
+           gate=BDD_STEP_GATE, rtol=BDD_STEP_RTOL,
+           margin=f"{BDD_STEP_RTOL - worst[BDD_STEP_GATE]:.3g}",
+           image_max_abs_diff=max(image_errs), image_tol=AUG_MAX_ERR)
+    check(steps == BDD_STEP_BATCHES, f"bdd steps {steps} == {BDD_STEP_BATCHES}")
+    check(worst[BDD_STEP_GATE] <= BDD_STEP_RTOL,
+          f"bdd seg step card ({BDD_STEP_GATE}) vs CPU float64 on the same inputs "
+          f"{worst[BDD_STEP_GATE]} <= {BDD_STEP_RTOL}")
 
     # 6: the published model at 416x416, batch 32, unfolded and folded (its
     # block shapes are held against the twins by ``phase_fused_kernels``)
@@ -2045,6 +2364,106 @@ def phase_bdd(device, smi: str, cli: dict | None = None) -> dict:
     check(min(launches.values()) > 0, f"every kernel of the bdd path launched: {launches}")
     report("bdd", bdd_launches=launches, phase_seconds=f"{time.perf_counter() - t_phase:.1f}",
            card=f"'{smi}'")
+    return launches
+
+
+def hpo_cli(smi: str) -> dict:
+    """The HPO sweep as a user runs it: ``python -m
+    mobilenet_yolo_tpu_torch.hpo.random_search`` on the bdd phase's data
+    yaml (``BASELINE.json`` pairs the sweep with the BDD model), its own
+    process from ``HPO_DIR`` (``HPO_TRIALS`` trials of ``HPO_EPOCHS`` epochs,
+    seed ``HPO_SEED``, each trial ``cli/train.py``'s fit through the
+    tuner-override seam). Checks ``trials.json`` (the seeded draws, one
+    intermediate report per in-run eval, the final report the best mAP)
+    and each trial's run directory (``log.txt``; the draw's weight decay and
+    learning rate in the checkpoint's optimizer). Returns the rows and the
+    config of the best trial."""
+    from mobilenet_yolo_tpu_torch.cli import train as cli_train
+    from mobilenet_yolo_tpu_torch.hpo.random_search import sample_params
+    from mobilenet_yolo_tpu_torch.train.schedule import learning_rate_for_epoch
+
+    t0 = time.perf_counter()
+    shutil.rmtree(HPO_DIR, ignore_errors=True)
+    HPO_DIR.mkdir(parents=True)
+    data_yaml = str(BDD_DIR / "data.yaml")
+    out = run_module("mobilenet_yolo_tpu_torch.hpo.random_search", "-y", data_yaml, "--trials",
+                     str(HPO_TRIALS), "--epochs", str(HPO_EPOCHS), "--seed", str(HPO_SEED),
+                     "--workdir", str(HPO_DIR / "runs"), "--out", str(HPO_DIR / "trials.json"),
+                     cwd=HPO_DIR)
+    seconds = time.perf_counter() - t0
+    rows = json.loads((HPO_DIR / "trials.json").read_text())
+    space = json.loads((ROOT / "mobilenet_yolo_tpu_torch" / "hpo" / "search_space.json")
+                       .read_text())
+    rng = np.random.default_rng(HPO_SEED)
+    draws = [sample_params(space, rng) for _ in range(HPO_TRIALS)]
+    check([r["trial"] for r in rows] == list(range(HPO_TRIALS))
+          and [r["params"] for r in rows] == draws,
+          f"trials.json holds the seeded draws: {[r['params'] for r in rows]} == {draws}")
+    defaults = cli_train.get_params(["-y", data_yaml])
+    n_evals = HPO_EPOCHS // TrainerConfig.eval_every
+    for r in rows:
+        run = HPO_DIR / "runs" / f"trial_{r['trial']}"
+        log = read_log(run, HPO_EPOCHS)
+        best = r["best_mAP"]
+        check(len(r["intermediates"]) == n_evals and r["final_report"] == best
+              and np.isfinite(best) and 0.0 <= best <= 1.0 and best == max(r["intermediates"]),
+              f"trial {r['trial']}: {n_evals} intermediate reports, final == best mAP: {r}")
+        params = r["params"]
+        lrs = [learning_rate_for_epoch(params["learning_rate"], e, tuple(defaults.schedule),
+                                       tuple(int(w) for w in defaults.warm_up))
+               for e in range(HPO_EPOCHS)]
+        raw = CheckpointManager(str(run)).restore_latest_raw()
+        groups = raw["optimizer"]["param_groups"]
+        check(raw["epoch"] == HPO_EPOCHS
+              and all(g["weight_decay"] == params["weight_decay"] for g in groups)
+              and all(abs(g["lr"] - lrs[-1]) <= 1e-12 * lrs[-1] for g in groups)
+              and np.allclose(log[:, 5], lrs, rtol=0, atol=5e-7),
+              f"trial {r['trial']}'s run directory records its draw {params}: weight decay "
+              f"{[g['weight_decay'] for g in groups]}, lr {[g['lr'] for g in groups]}, "
+              f"log {log[:, 5]} vs {lrs}")
+        r["seconds"] = float(log[:, 3].sum())
+        report("hpo", trial=r["trial"], best_mAP=f"{best:.6f}",
+               intermediates=r["intermediates"], final_report=r["final_report"],
+               loss_by_epoch="/".join(f"{v:.4f}" for v in log[:, 1]),
+               lr=params["learning_rate"], weight_decay=params["weight_decay"],
+               mosaic_num=params["mosaic_num"], seconds=f"{r['seconds']:.1f}", card=f"'{smi}'")
+    best = max(rows, key=lambda r: r["best_mAP"])
+    check(f'"best_trial": {best["trial"]}' in out, f"the sweep named trial {best['trial']}")
+    report("hpo", what="processes", trials=HPO_TRIALS, epochs=HPO_EPOCHS, seed=HPO_SEED,
+           best_trial=best["trial"], seconds=f"{seconds:.1f}", card=f"'{smi}'")
+    overrides = {k: v for k, v in best["params"].items()
+                 if k not in ("learning_rate", "weight_decay")}
+    return {"best": best, "cfg": load_config(data_yaml, overrides), "data": load_yaml(data_yaml)}
+
+
+def phase_hpo(device, smi: str, sweep: dict) -> dict:
+    """The sweep's best trial in this process: its checkpoint evaluated on
+    the card at the gate its in-run eval used (a fresh state's), at torch's
+    default precision as the trial ran, against the logged best mAP within
+    ``FIT_EVAL_MAP_TOL``; kernel 1 once a batch. Returns its launches."""
+    best, cfg, data = sweep["best"], sweep["cfg"], sweep["data"]
+    mc = cfg.model
+    raw = CheckpointManager(str(HPO_DIR / "runs" / f"trial_{best['trial']}")).restore_latest_raw()
+    model = build_model(mc, device=device)
+    model.load_state_dict(served_state_dict(raw))
+    n_eval = -(-BDD_TEST // mc["batch_size"])
+    for counted in LAUNCH_COUNTERS:
+        counted.launches = 0
+    torch.backends.cudnn.allow_tf32 = True
+    res = evaluate_detection(make_predict_fn(model, mc, top_k=FIT_TOP_K),
+                             bdd_test_loader(mc, data, mc["batch_size"]), cfg.classes,
+                             TrainState.val_conf, batch_size=mc["batch_size"], device=device)
+    torch.cuda.synchronize()
+    torch.backends.cudnn.allow_tf32 = False
+    launches = {"nms_suppress": suppress.launches}
+    err = abs(res["mAP"] - best["best_mAP"])
+    report("hpo", what="best_trial_eval", trial=best["trial"], gate=TrainState.val_conf,
+           mAP=f"{res['mAP']:.6f}", logged_best_mAP=f"{best['best_mAP']:.6f}",
+           abs_err=f"{err:.3g}", tol=FIT_EVAL_MAP_TOL, margin=f"{FIT_EVAL_MAP_TOL - err:.3g}",
+           seg_mIoU=f"{res['seg_miou']:.6f}", launches=launches, card=f"'{smi}'")
+    check(launches["nms_suppress"] == n_eval, f"the best trial's eval: suppress once a batch")
+    check(err <= FIT_EVAL_MAP_TOL, f"the best trial's mAP {res['mAP']} vs its logged "
+                                   f"{best['best_mAP']}")
     return launches
 
 
@@ -2226,12 +2645,39 @@ def dist_worker(role: str, rank: int, world: int, port: int) -> None:
         info["tp"] = {"loss_dp": loss_dp, "loss_tp": loss_tp, "split_tensors": n_split,
                       "params_max_abs_err": max(float((tp[k] - v).abs().max())
                                                 for k, v in dp.items() if v.is_floating_point())}
+        # the same two steps with slim_mode loss: under 1x2 every rank's loss
+        # carries the whole model's L1 penalty; each rank's penalty after
+        # the step, and the gathered model for this process to recompute it
+        slim_mc = dict(mc, slim_l1=DIST_SLIM_L1, slim_mode="loss")
+        slim = {}
+        for name, grid in (("dp", mesh), ("tp", mesh_tp)):
+            m = fresh()
+            st = create_train_state(m)
+            shard_over_model_axis(st, grid)
+            step = make_geometry_train_step(m, slim_mc, fused_aug=True, mesh=grid)
+            before = aug_compose.launches
+            _, metrics = step(st, *global_batch(grid, geometry_args(t)), DIST_SEED,
+                              out_hw=full["out_size"])
+            torch.cuda.synchronize()
+            slim[name] = (float(metrics["loss"]), float(prune.slim_penalty(m)),
+                          aug_compose.launches - before, state_payload(st)["model"],
+                          split_tensors(m))
+        (loss_dp, penalty_dp, launched_dp, dp, _), (loss_tp, penalty_tp, launched_tp, tp,
+                                                    split) = slim["dp"], slim["tp"]
+        gammas = {prune._gamma_key(site) for site in prune.prunable_gammas(tp)}
+        info["tp_slim"] = {"loss_dp": loss_dp, "loss_tp": loss_tp, "penalty_dp": penalty_dp,
+                           "penalty_tp": penalty_tp, "launches": [launched_dp, launched_tp],
+                           "split_gammas": len(gammas & set(split)),
+                           "replicated_gammas": len(gammas - set(split)),
+                           "params_max_abs_err": max(float((tp[k] - v).abs().max())
+                                                     for k, v in dp.items()
+                                                     if v.is_floating_point())}
+        out.update({f"tp_slim/{k}": v.float().cpu().numpy() for k, v in tp.items()
+                    if v.is_floating_point()})
         info["trainer"] = dist_trainer(mc, cfg, data, mesh_tp, fresh, device, out)
 
     # the sharded eval of the fit checkpoint, unfolded (kernel 1) and folded
-    # (kernels 1-4), every rank reading the whole test set, at torch's
-    # default precision, as the fit phase's cli.eval that it is held to
-    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = defaults
+    # (kernels 1-4), every rank reading the whole test set
     raw = CheckpointManager(str(FIT_DIR)).restore_latest_raw()
     served = build_model(mc, device=device)
     served.load_state_dict(served_state_dict(raw))
@@ -2242,6 +2688,11 @@ def dist_worker(role: str, rank: int, world: int, port: int) -> None:
     info["eval"] = {}
     for name, net in (("unfolded", served), ("folded", fold_batchnorm(served)))[
             :2 if role == "gloo" else 1]:
+        # like with like: unfolded at torch's default precision, as the fit
+        # phase's cli.eval it is held to; folded with TF32 off, as the fit
+        # phase's in-process folded float32 eval it is held to
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = (
+            defaults if name == "unfolded" else (False, False))
         for counted in LAUNCH_COUNTERS:
             counted.launches = 0
         res = evaluate_detection(make_predict_fn(net, mc, top_k=FIT_TOP_K, mesh=mesh), test,
@@ -2458,6 +2909,41 @@ def phase_dist(device, smi: str, fit_eval: dict) -> dict:
     check(tp_rel <= TP_LOSS_RTOL and tp["params_max_abs_err"] <= TP_PARAM_ATOL,
           f"TP step vs DP step: {tp}")
 
+    # the same with slim_mode loss: the TP step against the DP one, the loss
+    # equal on both ranks, each rank's penalty the gathered model's here
+    slim = gloo[0]["tp_slim"]
+    slim_rel = abs(slim["loss_tp"] - slim["loss_dp"]) / abs(slim["loss_dp"])
+    gathered = build_model(mc, device="cpu")
+    full = gathered.state_dict()
+    full.update({k[len("tp_slim/"):]: torch.from_numpy(v)
+                 for k, v in np.load(DIST_DIR / "gloo0.npz").items() if k.startswith("tp_slim/")})
+    gathered.load_state_dict(full)
+    want_penalty = float(prune.slim_penalty(gathered.double()))
+    init_penalty = float(prune.slim_penalty(
+        build_model(mc, device="cpu", generator=torch.Generator().manual_seed(SEED)).double()))
+    penalty_rel = max(abs(g["tp_slim"]["penalty_tp"] - want_penalty) / want_penalty
+                      for g in gloo)
+    report("dist", what="tp_slim_loss_vs_dp", mesh="1x2", slim_l1=DIST_SLIM_L1,
+           loss_dp=f"{slim['loss_dp']:.6f}", loss_tp=f"{slim['loss_tp']:.6f}",
+           loss_rel=f"{slim_rel:.3g}", tol=TP_LOSS_RTOL,
+           params_max_abs_err=f"{slim['params_max_abs_err']:.3g}", params_tol=TP_PARAM_ATOL,
+           penalty_in_loss=f"{(slim['loss_tp'] - tp['loss_tp']) / DIST_SLIM_L1:.4f}",
+           init_penalty=f"{init_penalty:.4f}",
+           ranks_penalty="/".join(f"{g['tp_slim']['penalty_tp']:.6f}" for g in gloo),
+           gathered_penalty=f"{want_penalty:.6f}", penalty_rel=f"{penalty_rel:.3g}",
+           penalty_tol=DIST_PENALTY_RTOL, split_gammas=slim["split_gammas"],
+           replicated_gammas=slim["replicated_gammas"], launches=slim["launches"])
+    check(slim["split_gammas"] > 0 and slim["replicated_gammas"] > 0,
+          f"the TP slim step holds split and replicated gammas: {slim}")
+    check(all(g["tp_slim"]["loss_tp"] == slim["loss_tp"] for g in gloo),
+          "the TP slim step's loss is equal on every rank")
+    check(slim_rel <= TP_LOSS_RTOL and slim["params_max_abs_err"] <= TP_PARAM_ATOL,
+          f"TP slim-loss step vs DP: {slim}")
+    check(penalty_rel <= DIST_PENALTY_RTOL,
+          f"each rank's penalty vs the gathered model's {want_penalty}: {penalty_rel}")
+    check(all(g["tp_slim"]["launches"] == [1, 1] for g in gloo),
+          "aug_compose once per slim step per rank")
+
     # the Trainer on the 1x2 mesh, its checkpoint resumed on every rank and
     # loaded here
     ckpt = check_trainer_checkpoint(mc, device)
@@ -2474,10 +2960,13 @@ def phase_dist(device, smi: str, fit_eval: dict) -> dict:
     check(len({g["trainer"]["mAP"] for g in gloo}) == 1, "the Trainer's mAP on every rank")
 
     # the sharded eval: every rank's mAP bit-equal, near fit's one process
+    # on like terms: unfolded against cli.eval (both at torch's defaults),
+    # folded against the fit phase's in-process folded float32 eval (both
+    # kernels 2-4 with TF32 off)
     n_eval = -(-DATA_TEST // mc["batch_size"])
-    for name in ("unfolded", "folded"):
+    for name, fit_key in (("unfolded", "mAP"), ("folded", "folded_f32_mAP")):
         maps = {g["eval"][name]["mAP"] for g in gloo}
-        err = abs(gloo[0]["eval"][name]["mAP"] - fit_eval["mAP"])
+        err = abs(gloo[0]["eval"][name]["mAP"] - fit_eval[fit_key])
         for g in gloo:
             report("dist", what=f"sharded_eval_{name}", rank=g["rank"],
                    mAP=f"{g['eval'][name]['mAP']:.6f}", launches=g["eval"][name]["launches"])
@@ -2485,9 +2974,10 @@ def phase_dist(device, smi: str, fit_eval: dict) -> dict:
                                                for k in FUSED}}
             check(g["eval"][name]["launches"] == want,
                   f"rank {g['rank']} {name} eval launches {g['eval'][name]['launches']} == {want}")
-        report("dist", what=f"sharded_eval_{name}_vs_fit", fit_mAP=f"{fit_eval['mAP']:.6f}",
-               abs_err=f"{err:.3g}", tol=DIST_MAP_TOL, margin=f"{DIST_MAP_TOL - err:.3g}",
-               ranks_equal=len(maps) == 1)
+        report("dist", what=f"sharded_eval_{name}_vs_fit",
+               against="cli_eval" if name == "unfolded" else "in_process_folded_f32",
+               fit_mAP=f"{fit_eval[fit_key]:.6f}", abs_err=f"{err:.3g}", tol=DIST_MAP_TOL,
+               margin=f"{DIST_MAP_TOL - err:.3g}", ranks_equal=len(maps) == 1)
         check(len(maps) == 1, f"{name}: every rank's mAP is the same: {maps}")
         check(err <= DIST_MAP_TOL, f"{name} sharded mAP within {DIST_MAP_TOL} of fit's")
 
@@ -2505,7 +2995,7 @@ def phase_dist(device, smi: str, fit_eval: dict) -> dict:
           and nccl_stats <= DIST_BN_TOL, "NCCL step vs one process")
     check(nccl_map_err <= DIST_MAP_TOL, "NCCL sharded eval vs fit's mAP")
 
-    launches = {"aug_compose": gloo[0]["step_launches"]["aug_compose"],
+    launches = {"aug_compose": gloo[0]["step_launches"]["aug_compose"] + sum(slim["launches"]),
                 "slot_aug": gloo[0]["step_launches"]["slot_aug"],
                 **{k: gloo[0]["eval"]["folded"]["launches"][k] for k in FUSED},
                 "nms_suppress": sum(gloo[0]["eval"][n]["launches"]["nms_suppress"]
@@ -2755,12 +3245,18 @@ def phase_slim(device, smi: str, cli: dict | None = None) -> dict:
 def phase_quant(device, smi: str, fit_eval: dict) -> dict:
     """The fit checkpoint through the port's quantize CLI (its own process):
     calibration on the test shard, the int8 artifact, the float vs int8 mAP
-    A/B at the checkpoint's gate; ``mAP_float`` held to the fit phase's
-    ``cli.eval`` of the same checkpoint at that gate (``fit_eval``),
-    ``mAP_int8`` to the sanity bar. In this process the artifact is loaded
-    (``quant.load_int8``) and served through ``QuantSim`` on the card, kernel
-    1 counted, its mAP the tool's; and its heads held card vs CPU in
-    float64. Returns the kernels' launches on that path."""
+    A/B at the checkpoint's gate; ``mAP_int8`` held to the sanity bar.
+    ``mAP_float`` is held like with like: to the same float arm (the folded
+    weights on the per-layer modules, batches of ``QUANT_BATCH``) replayed
+    in this process at torch's default cuDNN TF32, as the tool runs it; the
+    replay with TF32 off to the fit phase's folded float32 eval of the same
+    checkpoint at that gate (``fit_eval``). ``cli.eval``'s mAP (unfolded,
+    batches of 32, TF32) is printed beside: the two differ in rounding only,
+    and on 64 test images that moves the mAP by whole detections. In this
+    process the artifact is loaded (``quant.load_int8``) and served through
+    ``QuantSim`` on the card, kernel 1 counted, its mAP the tool's; and its
+    heads held card vs CPU in float64. Returns the kernels' launches on that
+    path."""
     t_phase = time.perf_counter()
     shutil.rmtree(QUANT_DIR, ignore_errors=True)
     QUANT_DIR.mkdir(parents=True)
@@ -2776,16 +3272,40 @@ def phase_quant(device, smi: str, fit_eval: dict) -> dict:
         str(QUANT_CALIB_BATCHES), "--eval", "--val-conf", gate)
     rep = json.loads(out[out.index("{"):])  # the report, printed last
     tool_s = time.perf_counter() - t0
-    evaluated = fit_eval
+
+    # the float arm replayed here: the tool's model, batches and gate, at
+    # TF32 as in the tool's process, then with TF32 off
+    test = Loader(DetectionDataset(records.RecordReader(data["test_dataset_path"]["lmdb"]),
+                                   phase="test"), QUANT_BATCH, [[mc["img_w"], mc["img_h"]]],
+                  mc["normalize"]["mean"], mc["normalize"]["std"], shuffle=False,
+                  pad_final=False)
+    model = build_model(mc, device=device)
+    model.load_state_dict(served_state_dict(CheckpointManager(str(FIT_DIR)).restore_latest_raw()))
+    predict = make_predict_fn(quant.per_layer_folded(model), mc, top_k=FIT_TOP_K)
+    replay = {}
+    for name, tf32 in (("tf32", True), ("f32", False)):
+        torch.backends.cudnn.allow_tf32 = tf32
+        replay[name] = evaluate_detection(predict, test, cfg.classes, float(gate),
+                                          batch_size=QUANT_BATCH, device=device)["mAP"]
+    err = abs(rep["mAP_float"] - replay["tf32"])
+    f32_err = abs(replay["f32"] - fit_eval["folded_f32_mAP"])
     report("quant", what="ab", seconds=f"{tool_s:.1f}", sites=rep["sites"],
            int8_weights=rep["int8_weights"], total_params=rep["total_params"],
            int8_fraction=rep["int8_fraction"], val_conf=gate,
-           mAP_float=f"{rep['mAP_float']:.6f}", cli_eval_mAP=f"{evaluated['mAP']:.6f}",
+           mAP_float=f"{rep['mAP_float']:.6f}", replay_tf32_mAP=f"{replay['tf32']:.6f}",
+           abs_err=f"{err:.3g}", tol=FIT_EVAL_MAP_TOL, margin=f"{FIT_EVAL_MAP_TOL - err:.3g}",
+           replay_f32_mAP=f"{replay['f32']:.6f}",
+           fit_folded_f32_mAP=f"{fit_eval['folded_f32_mAP']:.6f}", f32_abs_err=f"{f32_err:.3g}",
+           f32_margin=f"{FIT_EVAL_MAP_TOL - f32_err:.3g}", cli_eval_mAP=f"{fit_eval['mAP']:.6f}",
+           float_vs_cli_eval=f"{abs(rep['mAP_float'] - fit_eval['mAP']):.3g}",
            mAP_int8=f"{rep['mAP_int8']:.6f}", mAP_drop=f"{rep['mAP_drop']:.6f}",
            predicted_drop=QUANT_PREDICTED_DROP, bar=f"mAP_int8 > {QUANT_MAP_SHARE} x mAP_float",
            card=f"'{smi}'")
-    check(abs(rep["mAP_float"] - evaluated["mAP"]) <= FIT_EVAL_MAP_TOL,
-          f"the float arm's mAP {rep['mAP_float']} is cli.eval's {evaluated['mAP']}")
+    check(err <= FIT_EVAL_MAP_TOL,
+          f"the float arm's mAP {rep['mAP_float']} is its replay's {replay['tf32']}")
+    check(f32_err <= FIT_EVAL_MAP_TOL,
+          f"the float arm's replay with TF32 off {replay['f32']} is the fit phase's folded "
+          f"float32 eval's {fit_eval['folded_f32_mAP']}")
     check(rep["mAP_int8"] > QUANT_MAP_SHARE * rep["mAP_float"],
           f"int8 mAP {rep['mAP_int8']} > {QUANT_MAP_SHARE} x float {rep['mAP_float']}")
 
@@ -2794,10 +3314,6 @@ def phase_quant(device, smi: str, fit_eval: dict) -> dict:
     variables, scales = quant.load_int8(str(artifact))
     check(len(scales) == rep["sites"], f"the artifact holds {rep['sites']} activation scales")
     sim = quant.QuantSim(load_flax_variables(build_model(mc, device=device), variables), scales)
-    test = Loader(DetectionDataset(records.RecordReader(data["test_dataset_path"]["lmdb"]),
-                                   phase="test"), QUANT_BATCH, [[mc["img_w"], mc["img_h"]]],
-                  mc["normalize"]["mean"], mc["normalize"]["std"], shuffle=False,
-                  pad_final=False)
     predict = make_predict_fn(sim, mc, top_k=FIT_TOP_K)
     torch.backends.cudnn.allow_tf32 = True
     for counted in LAUNCH_COUNTERS:
@@ -3817,9 +4333,11 @@ def phases_fit_bdd(device, smi: str, lap, bdd: bool = True, built=None) -> tuple
 
 def main(argv=None) -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--only", choices=("fit", "bdd"), nargs="+",
-                        help="run only these phases (after the build; fit on freshly built "
-                             "VOC shards) and print no kernels line or result")
+    parser.add_argument("--only", choices=("mbv3", "fit", "bdd", "dist", "hpo", "quant"),
+                        nargs="+",
+                        help="run only these phases (after the build; mbv3 and fit on freshly "
+                             "built VOC shards, dist and quant after fit) and print no kernels "
+                             "line or result")
     args = parser.parse_args(argv)
     t_run = t_lap = time.perf_counter()
 
@@ -3839,13 +4357,29 @@ def main(argv=None) -> None:
     phase_build()
     lap("build")
     if args.only:
-        if "fit" in args.only:
+        only = set(args.only)
+        if only & {"mbv3", "fit", "dist", "quant"}:
             build_voc_shards(smi)
             lap("voc_shards")
-            phases_fit_bdd(device, smi, lap, bdd="bdd" in args.only)
-        else:
+        if "mbv3" in only:
+            phase_mbv3(device, smi)
+            lap("mbv3")
+        if only & {"fit", "dist", "quant"}:
+            (_, fit_eval), _ = phases_fit_bdd(device, smi, lap, bdd="bdd" in only)
+        elif "bdd" in only:
             phase_bdd(device, smi)
             lap("bdd")
+        if "dist" in only:
+            phase_dist(device, smi, fit_eval)
+            lap("dist")
+        if "quant" in only:
+            phase_quant(device, smi, fit_eval)
+            lap("quant")
+        if "hpo" in only:
+            if "bdd" not in only:
+                build_bdd_shards(smi)
+            phase_hpo(device, smi, hpo_cli(smi))
+            lap("hpo")
         return
     max_err = {"nms_suppress": phase_kernel(device)}
     launches = {}
@@ -3858,18 +4392,24 @@ def main(argv=None) -> None:
     lap("kernel_serve_aug_train")
     loader_times = phase_data(device, smi, voc_built)
     lap("data")
-    mbv3_launches = phase_mbv3(device, smi)
+    mbv3_launches, mbv3_cut_launches = phase_mbv3(device, smi)
     lap("mbv3")
     (fit_launches, fit_eval), bdd_launches = phases_fit_bdd(device, smi, lap, built=bdd_built)
     trees.shutdown()
-    # the slim phase's processes (its fits, cuts and evals) run beside the
-    # dist phase, whose checks are of values, not times
-    with ThreadPoolExecutor(1) as background:
+    # the slim phase's processes (its fits, cuts and evals) and the HPO
+    # sweep run beside the dist phase, whose checks are of values, not
+    # times; the sweep ends before the slim phase's in-process part
+    with ThreadPoolExecutor(2) as background:
         slim = background.submit(slim_cli, smi)
+        sweep = background.submit(hpo_cli, smi)
         dist_launches = phase_dist(device, smi, fit_eval)
         lap("dist")
+        sweep = sweep.result()
+        lap("hpo_processes")
         slim_launches = phase_slim(device, smi, slim.result())
     lap("slim")
+    hpo_launches = phase_hpo(device, smi, sweep)
+    lap("hpo")
     quant_launches = phase_quant(device, smi, fit_eval)
     lap("quant")
     export_launches = phase_export(device, smi)
@@ -3900,11 +4440,13 @@ def main(argv=None) -> None:
         times[name]["fit_launches"] = n
     for name in KERNELS:
         times[name]["mbv3_launches"] = mbv3_launches.get(name, 0)
+        times[name]["mbv3_cut_launches"] = mbv3_cut_launches.get(name, 0)
         times[name]["slim_launches"] = slim_launches.get(name, 0)
         times[name]["quant_launches"] = quant_launches.get(name, 0)
         times[name]["export_launches"] = export_launches.get(name, 0)
         times[name]["dist_launches"] = dist_launches.get(name, 0)
         times[name]["bdd_launches"] = bdd_launches.get(name, 0)
+        times[name]["hpo_launches"] = hpo_launches.get(name, 0)
     for name in FUSED:
         times[name]["bf16_max_rel_err"] = bf16_errs[name]
         times[name]["bf16_source"] = BF16_SOURCES[name]
@@ -3928,9 +4470,11 @@ def main(argv=None) -> None:
                                              "prepass_ms", "pixel_pass_ms", "class_ms",
                                              "loader_launches", "loader_max_abs_err",
                                              "loader_buckets", "fit_launches",
-                                             "mbv3_launches", "slim_launches",
+                                             "mbv3_launches", "mbv3_cut_launches",
+                                             "slim_launches",
                                              "quant_launches", "export_launches",
-                                             "dist_launches", "bdd_launches")
+                                             "dist_launches", "bdd_launches",
+                                             "hpo_launches")
            + bf16_keys + bdd416_keys if key in times[name]}}
         for name, (source, replaces) in KERNELS.items()]}))
     print(smi, flush=True)

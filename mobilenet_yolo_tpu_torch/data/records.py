@@ -171,6 +171,7 @@ class RecordWriter:
         self.directory = directory
         os.makedirs(directory, exist_ok=True)
         self._count = 0
+        self._closed = False
         self._lib = _load_native()
         if self._lib is not None:
             self._w = self._lib.rsw_create(directory.encode())
@@ -198,6 +199,12 @@ class RecordWriter:
         self.append(encode_record(image_bytes, labels, seg_bytes))
 
     def close(self, meta: Optional[dict] = None):
+        """Finish the shard and write its ``meta.json`` (``meta`` merged in).
+        Only the first call writes: the ``with`` block's own ``close`` after
+        a builder's ``close(meta)`` keeps the builder's keys."""
+        if self._closed:
+            return
+        self._closed = True
         if self._lib is not None:
             self._lib.rsw_finish(self._w)
             self._w = None

@@ -75,6 +75,31 @@ class _GatherChannels(torch.autograd.Function):
         return grad.narrow(1, ctx.index * ctx.width, ctx.width).contiguous(), None, None
 
 
+class _SumSlices(torch.autograd.Function):
+    """Every rank's value summed over the model group; the backward hands
+    each rank the gradient of its own value (no sum over the group)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        out = x.clone()
+        dist.all_reduce(out, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+def sum_of_slices(x: torch.Tensor, group) -> torch.Tensor:
+    """``x`` (a sum over this rank's slices) summed over the model group.
+    Every rank of the group carries the same loss, so, as the gather's
+    backward hands each rank its slice of the gradient, each rank's ``x``
+    gets the loss's gradient once; ``mesh.differentiable_sum``, whose
+    backward sums the gradient over the group, would count it ``n_model``
+    times."""
+    return _SumSlices.apply(x, group)
+
+
 class _Split:
     """What a column-parallel module keeps: its model group, its slice."""
 

@@ -176,11 +176,31 @@ def slim_penalty(model: nn.Module) -> torch.Tensor:
     differentiable. The ``slim_mode: loss`` term: the step adds ``slim_l1 *
     slim_penalty(model)`` to the loss. The JAX docstring records why it
     fails under AdamW (every gamma shrinks at the same rate); ``prox`` is
-    the default."""
-    gammas = _gamma_params(model)
-    total = torch.zeros((), dtype=gammas[0].dtype, device=gammas[0].device)
-    for g in gammas:
-        total = total + g.abs().sum()
+    the default.
+
+    Under tensor parallelism (``parallel/sharding.py``) it is the whole
+    model's sum on every rank of a model group, as GSPMD sums the sharded
+    gammas: a split gamma holds this rank's channels, whose sum is added
+    over the model group (``sharding.sum_of_slices``: each rank's slice gets
+    its own gradient once), and a replicated gamma, which every rank holds
+    whole, is counted once.
+    """
+    from mobilenet_yolo_tpu_torch.parallel.sharding import split_tensors, sum_of_slices
+
+    split = split_tensors(model)
+    params = dict(model.named_parameters())
+    gammas = [_gamma_key(site) for site in _sites(model.state_dict())]
+    g0 = params[gammas[0]]
+    total = torch.zeros((), dtype=g0.dtype, device=g0.device)
+    slices, group = torch.zeros_like(total), None
+    for key in gammas:
+        if key in split:
+            slices = slices + params[key].abs().sum()
+            group = split[key].tp_group
+        else:
+            total = total + params[key].abs().sum()
+    if group is not None:
+        total = total + sum_of_slices(slices, group)
     return total
 
 

@@ -24,7 +24,9 @@ Network Slimming (``slim_l1`` in the config, ``step.py:32-62``):
 ``slim_mode: loss`` adds ``slim_l1 * prune.slim_penalty`` to the train-mode
 loss and to ``metrics["loss"]``; ``slim_mode: prox`` (the default) applies
 ``prune.slim_prox_update`` after the optimizer step and before the EMA
-update, in the plain and the geometry step alike.
+update, in the plain and the geometry step alike. Under a model axis
+above 1 the penalty is the whole model's on every rank of a model group,
+as JAX's GSPMD sum is (``prune.slim_penalty``).
 """
 
 from __future__ import annotations
@@ -143,7 +145,9 @@ def make_loss_fn(model: torch.nn.Module, config: dict, segmentation: bool = Fals
             metrics["seg_obj"] = s_obj
             metrics["seg_no_obj"] = s_no_obj
         if slim_l1 and train:
-            # each rank carries its share, so the shares sum to one penalty
+            # the whole model's penalty (summed over a model group's split
+            # gammas); each rank of the data group carries its share, so the
+            # shares sum to one penalty
             total = total + slim_l1 * slim_penalty(model) / group_size(group)
         metrics["loss"] = total.detach()
         if group is not None:
@@ -179,13 +183,6 @@ def _ema_update(state: TrainState, ema_decay: float | None, ema_ramp: float = 20
 
 def _data_group(mesh):
     return None if mesh is None else mesh.data_group
-
-
-def _check_mesh(config: dict, mesh) -> None:
-    lam, mode = _slim_cfg(config)
-    if mesh is not None and mesh.n_model > 1 and lam and mode == "loss":
-        raise ValueError("slim_mode 'loss' under a model axis above 1 is not supported: "
-                         "each rank's L1 penalty would count its channel shard only")
 
 
 def _replicating(mesh) -> Callable:
@@ -247,7 +244,6 @@ def make_train_step(model: torch.nn.Module, config: dict, segmentation: bool = F
     """
     if pixel_aug and not normalize:
         raise ValueError("pixel_aug requires normalize=True (raw images)")
-    _check_mesh(config, mesh)
     loss_fn = make_loss_fn(model, config, segmentation, normalize=normalize, dtype=dtype,
                            group=_data_group(mesh))
     slim_prox = _prox_lambda(config)
@@ -362,7 +358,6 @@ def make_geometry_train_step(model: torch.nn.Module, config: dict, segmentation:
     """
     if fused_aug not in FUSED_AUG_MODES:
         raise ValueError(f"fused_aug must be one of {FUSED_AUG_MODES}, got {fused_aug!r}")
-    _check_mesh(config, mesh)
     ensure_replicated = _replicating(mesh)
     loss_fn = make_loss_fn(model, config, segmentation=segmentation, normalize=True,
                            dtype=dtype, group=_data_group(mesh))

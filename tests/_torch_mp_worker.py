@@ -11,7 +11,8 @@ with gloo, and compares what each rank writes (``rank<r>.npz`` and
 
 * ``steps`` (2 ranks): one data-parallel plain step (mesh 2x1), the same
   with remat, one data-parallel geometry step, one tensor-parallel step
-  (mesh 1x2, ``min_channels`` 128) with its checkpoint payload, the
+  (mesh 1x2, ``min_channels`` 128) with its checkpoint payload, the plain
+  step with ``slim_mode: loss`` under both meshes, the
   sharded predict under both meshes and ``evaluate_detection`` under the
   2x1 mesh, float64 weights; then an epoch of the ``Loader``, which finds
   its rank and world size in the group.
@@ -38,6 +39,7 @@ from mobilenet_yolo_tpu_torch.eval.evaluator import evaluate_detection
 from mobilenet_yolo_tpu_torch.models.mbv2_yolo import MBv2YOLO
 from mobilenet_yolo_tpu_torch.parallel import create_mesh, global_batch, shard_over_model_axis
 from mobilenet_yolo_tpu_torch.parallel.sharding import agree_replicated_gradients, split_tensors
+from mobilenet_yolo_tpu_torch.prune import slim_penalty
 from mobilenet_yolo_tpu_torch.tools_io import load_params_npz
 from mobilenet_yolo_tpu_torch.train import (GEOMETRY_BATCH_KEYS, create_train_state,
                                             make_geometry_train_step, make_train_step)
@@ -110,6 +112,22 @@ def job_steps(rank: int, d: str) -> dict:
     for kind, names in (("replicated", lambda n: n not in split), ("split", lambda n: n in split)):
         info[f"agreed_{kind}"] = sorted({float(v) for n, p in model.named_parameters()
                                          if names(n) for v in (p.grad.min(), p.grad.max())})
+
+    # slim_mode loss (slim_config.json) under both meshes: under 1x2 the
+    # penalty is the whole model's on both ranks
+    slim_cfg = json.load(open(os.path.join(d, "slim_config.json")))
+    for name, mesh in (("dp_slim", mesh_dp), ("tp_slim", mesh_tp)):
+        model = _model(variables)
+        state = create_train_state(model, ema=True)
+        shard_over_model_axis(state, mesh, min_channels=128)
+        info[f"{name}_penalty"] = float(slim_penalty(model))
+        step = make_train_step(model, slim_cfg, ema_decay=0.9, ema_ramp=2.0, mesh=mesh)
+        _, metrics = step(state, *global_batch(mesh, batch))
+        info[f"{name}_metrics"] = {k: float(v) for k, v in metrics.items()}
+        payload = state_payload(state)
+        out.update(_state_arrays(name, payload["model"]))
+        out.update(_state_arrays(f"{name}_ema", payload["ema"]))
+    info["tp_slim_split_tensors"] = sorted(split_tensors(model))
 
     images = _t(data["predict_x"])
     val_conf = torch.tensor(0.01)

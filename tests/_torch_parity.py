@@ -8,6 +8,7 @@ gives), and reach the port through ``mobilenet_yolo_tpu_torch.convert``.
 
 from __future__ import annotations
 
+import json
 from pathlib import Path
 
 import jax
@@ -19,6 +20,7 @@ import yaml
 from mobilenet_yolo_tpu.models import MBv2YOLO as JaxMBv2YOLO
 from mobilenet_yolo_tpu.train import state as j_state
 from mobilenet_yolo_tpu_torch.convert import flax_to_state_dict, load_flax_variables
+from mobilenet_yolo_tpu_torch.data.records import RecordReader
 from mobilenet_yolo_tpu_torch.models.mbv2_yolo import MBv2YOLO
 
 REPO = Path(__file__).resolve().parent.parent
@@ -178,3 +180,25 @@ def assert_bn_stats_match(model: torch.nn.Module, new_stats) -> None:
     got = model.state_dict()
     for key, want in state_dict_of("batch_stats", new_stats).items():
         np.testing.assert_allclose(got[key].numpy(), want, rtol=1e-9, atol=1e-12, err_msg=key)
+
+
+# the builder's keys, which the port's ``meta.json`` keeps and the JAX
+# package's loses (its ``with`` block rewrites ``meta.json`` after the
+# builder's ``close(meta)``; the JAX package is not edited)
+BUILDER_META_KEYS = ("classes", "total_boxes", "segmentation")
+
+
+def assert_builder_meta(port: Path, jax_shard: Path, classes: list, segmentation: bool) -> None:
+    """``meta.json`` of a port-built shard: every key of the JAX-built one's
+    equal, and the builder's keys (absent from the JAX one) with the
+    builder's values: the classes with the background, every record's
+    boxes counted, the seg flag."""
+    got = json.loads((port / "meta.json").read_text())
+    want = json.loads((jax_shard / "meta.json").read_text())
+    assert not set(want) & set(BUILDER_META_KEYS)
+    assert {k: got[k] for k in want} == want
+    r = RecordReader(str(port))
+    assert {k: got[k] for k in BUILDER_META_KEYS} == {
+        "classes": classes, "total_boxes": sum(len(r[i].labels) for i in range(len(r))),
+        "segmentation": segmentation}
+    assert set(got) == set(want) | set(BUILDER_META_KEYS)

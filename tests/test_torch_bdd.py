@@ -3,7 +3,9 @@ the port against the JAX package's, on the CPU.
 
 One fabricated BDD-style tree (``tools/make_fabricated_bdd.py``: per-image
 COCO JSON whose class map drops 2 of 5 classes, single-channel seg PNGs)
-goes through both dataset builders, which must write byte-identical shards;
+goes through both dataset builders, which must write byte-identical records
+(their ``meta.json`` differ in the builder's keys, which only the port's
+keeps);
 both ``Loader(device_geometry=True)``s over those shards, which must stage
 bit-identical seg slots; and one loader batch through both segmentation
 geometry steps in float64.
@@ -34,7 +36,8 @@ from mobilenet_yolo_tpu_torch.models.mbv2_yolo import MBv2YOLO
 from mobilenet_yolo_tpu_torch.train import (GEOMETRY_BATCH_KEYS, create_train_state,
                                             make_geometry_train_step)
 
-from _torch_parity import SMALL_YOLO_CONFIG, jax_train_state, perturb, state_dict_of
+from _torch_parity import (SMALL_YOLO_CONFIG, assert_builder_meta, jax_train_state, perturb,
+                           state_dict_of)
 
 REPO = Path(__file__).resolve().parent.parent
 SPLITS = ("trainval_dataset_path", "test_dataset_path")
@@ -62,12 +65,18 @@ def bdd_shards(tmp_path_factory):
 
 def test_builders_write_identical_bdd_shards(bdd_shards):
     """Both builders on the COCO-JSON tree with its class map and seg PNGs:
-    every shard file byte-identical; the records hold the remapped labels
-    (1-3) and a single-channel seg PNG each."""
+    ``data.bin`` and ``index.bin`` byte-identical, ``meta.json`` key for
+    key but for the builder's keys, which only the port's keeps (the JAX
+    writer rewrites it without them; ``assert_builder_meta``); the records
+    hold the remapped labels (1-3) and a single-channel seg PNG each."""
+    classes = ["background"] + list(yaml.safe_load(
+        (bdd_shards / "data.yaml").read_text())["classes"]["map"])
     for split, n in zip(SPLITS, (6, 2)):
-        for name in ("data.bin", "index.bin", "meta.json"):
+        for name in ("data.bin", "index.bin"):
             want = (bdd_shards / "jax" / split / name).read_bytes()
             assert (bdd_shards / "port" / split / name).read_bytes() == want, (split, name)
+        assert_builder_meta(bdd_shards / "port" / split, bdd_shards / "jax" / split, classes,
+                            True)
         r = RecordReader(str(bdd_shards / "port" / split))
         assert len(r) == n
         labels = np.concatenate([r[i].labels for i in range(n)])

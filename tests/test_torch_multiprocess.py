@@ -10,7 +10,9 @@ the module and run while the JAX steps compile:
   (perturbed) weights in float64: the data-parallel plain and geometry
   steps (mesh 2x1) against JAX's 2-device mesh steps, the same plain step
   with remat, the tensor-parallel step (mesh 1x2, ``min_channels`` 128)
-  against JAX's and against the data-parallel step, the sharded predict
+  against JAX's and against the data-parallel step, the same with
+  ``slim_mode: loss`` (the whole model's L1 penalty on every rank, its
+  gradient once on each rank's slice of a split gamma), the sharded predict
   under both meshes and ``evaluate_detection`` on the 2x1 mesh against one
   process, and an epoch of the ``Loader``, which finds its rank in the
   group, against the JAX loader's slice for that rank;
@@ -34,6 +36,7 @@ equal bit for bit.
 import json
 import os
 import socket
+from concurrent.futures import ThreadPoolExecutor
 import subprocess
 import sys
 
@@ -57,6 +60,7 @@ from mobilenet_yolo_tpu_torch.data.synthetic import synthetic_batches
 from mobilenet_yolo_tpu_torch.eval.detector import make_predict_fn
 from mobilenet_yolo_tpu_torch.eval.evaluator import evaluate_detection
 from mobilenet_yolo_tpu_torch.models.mbv2_yolo import MBv2YOLO
+from mobilenet_yolo_tpu_torch.prune import _gamma_key, prunable_gammas
 from mobilenet_yolo_tpu_torch.tools_io import save_params_npz
 from mobilenet_yolo_tpu_torch.train.checkpoints import CheckpointManager
 from mobilenet_yolo_tpu_torch.train.loop import Trainer, TrainerConfig
@@ -67,6 +71,10 @@ from _torch_parity import (REPO, SMALL_YOLO_CONFIG, float64_pair, geometry_batch
 WORKER = os.path.join(REPO, "tests", "_torch_mp_worker.py")
 TIMEOUT = 300
 CLASSES = ["bg", "a", "b", "c"]
+# the slim-loss steps' L1 strength: large enough that the penalty's
+# gradient (slim_l1 / gamma's sign) competes with the data's on the first
+# AdamW step, so a gradient counted twice flips gammas' updates
+SLIM_CONFIG = dict(SMALL_YOLO_CONFIG, slim_l1=1e-2, slim_mode="loss")
 
 
 def _free_port() -> int:
@@ -150,13 +158,25 @@ def inputs(variables64):
 
 
 @pytest.fixture(scope="module")
-def jobs(tmp_path_factory, variables64, inputs):
-    """Every multi-process job, started at once."""
+def jax_slim_tp_step(variables64, inputs):
+    """JAX's slim-loss TP step, compiled and run in a thread beside the
+    other tests' JAX steps and the workers (a future of ``_jax_step``)."""
+    with ThreadPoolExecutor(1) as pool:
+        yield pool.submit(_jax_step, variables64, inputs,
+                          j_mesh.create_mesh(n_data=1, n_model=2), tp=True, config=SLIM_CONFIG)
+
+
+@pytest.fixture(scope="module")
+def jobs(tmp_path_factory, variables64, inputs, jax_slim_tp_step):
+    """Every multi-process job, started at once (with JAX's slim-loss TP
+    step)."""
     steps_dir = tmp_path_factory.mktemp("steps")
     save_params_npz(str(steps_dir / "weights.npz"), variables64["params"],
                     variables64["batch_stats"])
     with open(steps_dir / "config.json", "w") as f:
         json.dump(SMALL_YOLO_CONFIG, f)
+    with open(steps_dir / "slim_config.json", "w") as f:
+        json.dump(SLIM_CONFIG, f)
     np.savez(steps_dir / "batches.npz", x=inputs["x"], gt=inputs["gt"], n_gt=inputs["n_gt"],
              predict_x=inputs["predict_x"], eval_x=inputs["eval_x"],
              eval_gt=inputs["eval_gt"], eval_n_gt=inputs["eval_n_gt"],
@@ -207,7 +227,7 @@ def _prefixed(arrays: dict, prefix: str) -> dict:
     return {k[len(prefix) + 1:]: v for k, v in arrays.items() if k.startswith(prefix + "/")}
 
 
-def _jax_step(variables64, inputs, mesh, geometry=False, tp=False):
+def _jax_step(variables64, inputs, mesh, geometry=False, tp=False, config=SMALL_YOLO_CONFIG):
     """JAX's mesh step on the same weights and batch, float64, AdamW (and the
     EMA of the plain step)."""
     with jax.enable_x64(True):
@@ -215,7 +235,7 @@ def _jax_step(variables64, inputs, mesh, geometry=False, tp=False):
         tx = j_state.make_optimizer(7e-4, 4e-4)
         state = jax_train_state(variables64, tx)
         if geometry:
-            step = j_step.make_geometry_train_step(jm, SMALL_YOLO_CONFIG, tx, mesh=mesh,
+            step = j_step.make_geometry_train_step(jm, config, tx, mesh=mesh,
                                                    fused_aug=False)
             geo = inputs["geo"]
             args = j_mesh.shard_batch(mesh, tuple(jnp.asarray(geo[k]) for k in
@@ -226,7 +246,7 @@ def _jax_step(variables64, inputs, mesh, geometry=False, tp=False):
                                                                     variables64["params"]))
             if tp:
                 state = shard_over_model_axis(state, mesh, min_channels=128)
-            step = j_step.make_train_step(jm, SMALL_YOLO_CONFIG, tx, mesh=mesh,
+            step = j_step.make_train_step(jm, config, tx, mesh=mesh,
                                           ema_decay=0.9, ema_ramp=2.0, donate=False)
             args = j_mesh.shard_batch(mesh, (jnp.asarray(inputs["x"]), jnp.asarray(inputs["gt"]),
                                              jnp.asarray(inputs["n_gt"])))
@@ -302,6 +322,34 @@ def test_tensor_parallel_step_matches_jax_and_the_data_parallel_step(jobs, varia
         _assert_step_matches(infos[0]["tp_metrics"], got, got_ema, want)
         for key, v in _prefixed(a, "dp").items():
             np.testing.assert_allclose(got[key], v, atol=1e-5, err_msg=key)
+
+
+def test_tensor_parallel_slim_loss_step_matches_jax_and_the_data_parallel_step(
+        jobs, jax_slim_tp_step, variables64):
+    """``slim_mode: loss`` under mesh 1x2 at ``min_channels`` 128, where
+    gammas are split and others replicated: the loss carries the whole
+    model's penalty on both ranks, and the step equals JAX's TP step with
+    the same ``slim_l1`` and the port's DP step (mesh 2x1)."""
+    want = jax_slim_tp_step.result()
+    infos, arrays, _ = _ranks(jobs, "steps", 2)
+    gammas = {_gamma_key(site)
+              for site in prunable_gammas(_port_model(variables64).state_dict())}
+    split = gammas & set(infos[0]["tp_slim_split_tensors"])
+    assert split and gammas - split
+    assert infos[0]["tp_slim_metrics"] == infos[1]["tp_slim_metrics"]
+    assert infos[0]["tp_slim_penalty"] == infos[1]["tp_slim_penalty"]
+    np.testing.assert_allclose(infos[0]["tp_slim_penalty"], infos[0]["dp_slim_penalty"],
+                               rtol=1e-12)
+    # the penalty moves the loss far beyond the tolerance: counted on a
+    # rank's slices alone it would show
+    assert SLIM_CONFIG["slim_l1"] * infos[0]["tp_slim_penalty"] > 1e-3 * want[0]["loss"]
+    for a in arrays:
+        got, got_ema = _prefixed(a, "tp_slim"), _prefixed(a, "tp_slim_ema")
+        _assert_step_matches(infos[0]["tp_slim_metrics"], got, got_ema, want)
+        for key, v in _prefixed(a, "dp_slim").items():
+            np.testing.assert_allclose(got[key], v, atol=1e-5, err_msg=key)
+    np.testing.assert_allclose(infos[0]["tp_slim_metrics"]["loss"],
+                               infos[0]["dp_slim_metrics"]["loss"], rtol=1e-6)
 
 
 def test_tensor_parallel_replicated_gradients_agree(jobs):

@@ -4,9 +4,13 @@ dataset builder against the JAX package's, on the CPU.
 Mirrors ``tests/test_records.py`` on the port (both readers, v1 records, an
 empty record, seg bytes), then holds the two packages to one on-disk
 format: shards cross-read in both directions, and the two dataset builders
-write byte-identical shards from one fabricated VOC tree.
+write byte-identical records and indexes from one fabricated VOC tree. Their
+``meta.json`` files differ in the builder's keys (``classes``,
+``total_boxes``, ``segmentation``): the port's writer writes it once, so
+those keys stay, and the JAX package's rewrites it without them.
 """
 
+import json
 import pickle
 import struct
 import subprocess
@@ -22,6 +26,8 @@ from mobilenet_yolo_tpu.data import records as j_records
 from mobilenet_yolo_tpu_torch.data import dataset_builder, records
 from mobilenet_yolo_tpu_torch.data.records import (RecordReader, RecordWriter, decode_record,
                                                    encode_record)
+
+from _torch_parity import assert_builder_meta
 
 REPO = Path(__file__).resolve().parent.parent
 LABELS = np.asarray([[1, 0.5, 0.5, 0.2, 0.3], [4, 0.1, 0.2, 0.05, 0.08]], np.float32)
@@ -174,25 +180,43 @@ def _yaml_with_shards(root: Path, tag: str) -> str:
 
 
 def test_builders_write_identical_shards(fabricated_voc):
-    """The JAX and the port's ``build_dataset`` on one tree: every shard
-    file byte-identical; the port's reader reads the labels back; the
-    port's CLI renders ``--preview`` samples with their boxes."""
+    """The JAX and the port's ``build_dataset`` on one tree: ``data.bin``
+    and ``index.bin`` byte-identical and ``meta.json`` key for key, but
+    for the builder's keys that only the port's keeps
+    (``assert_builder_meta``); the port's reader reads the labels back;
+    the port's CLI renders ``--preview`` samples with their boxes."""
     j_builder.build_dataset(_yaml_with_shards(fabricated_voc, "jax"), log=lambda *a: None)
     subprocess.run([sys.executable, "-m", "mobilenet_yolo_tpu_torch.cli.build_dataset", "-d",
                     _yaml_with_shards(fabricated_voc, "port"), "--preview", "2"], check=True,
                    cwd=REPO, capture_output=True, timeout=120)
     previews = sorted((fabricated_voc / "port" / "trainval_dataset_path" / "preview").iterdir())
     assert [p.name for p in previews] == ["gt_0.jpg", "gt_1.jpg"]
+    classes = ["background"] + list(yaml.safe_load(
+        (fabricated_voc / "data.yaml").read_text())["classes"]["map"])
     for split, n in (("trainval_dataset_path", 6), ("test_dataset_path", 2)):
-        for name in ("data.bin", "index.bin", "meta.json"):
+        for name in ("data.bin", "index.bin"):
             want = (fabricated_voc / "jax" / split / name).read_bytes()
             assert (fabricated_voc / "port" / split / name).read_bytes() == want, (split, name)
+        assert_builder_meta(fabricated_voc / "port" / split, fabricated_voc / "jax" / split,
+                            classes, False)
         r = RecordReader(str(fabricated_voc / "port" / split))
         assert len(r) == n and all(r[i].labels.shape[1] == 6 for i in range(n))
         assert r.meta["num_records"] == n
     # the test split keeps difficult boxes flagged, the trainval split drops them
     trainval = RecordReader(str(fabricated_voc / "port" / "trainval_dataset_path"))
     assert not any(trainval[i].labels[:, 5].any() for i in range(6))
+
+
+def test_close_writes_meta_once(tmp_path):
+    """A second ``close`` (the ``with`` block's, after a builder's
+    ``close(meta)``) keeps what the first one wrote."""
+    with RecordWriter(str(tmp_path)) as w:
+        w.append_record(b"jpegbytes0", LABELS)
+        w.close({"classes": ["background", "a"], "total_boxes": 2})
+    assert json.loads((tmp_path / "meta.json").read_text()) == {
+        "num_records": 1, "format": "recordstore-v1", "classes": ["background", "a"],
+        "total_boxes": 2}
+    assert len(RecordReader(str(tmp_path))) == 1
 
 
 def test_to_yolo_labels_and_voc_xml_match_jax(tmp_path):
