@@ -14,10 +14,10 @@ hand-written slot-augmentation and augment-and-compose kernels) and
 ``train`` (AdamW state, schedule, plain and device-geometry steps); the
 BatchNorm folding and the fused-block kernels of the folded forward; and
 the measurement tools — ``tools`` (training split, geometry step, stem
-and augmentation probes), ``utils.profiling`` (CUDA-event timing, traces),
-``kernels.stem_probe`` (the stem roofline kernel) and ``config`` (the VOC
-contract as plain dicts); the serving front door (``bench``, ``cli.infer``,
-``eval.evaluator``); and the input pipeline — ``data`` (record shards,
+and augmentation probes), ``utils.profiling`` (CUDA-event timing, the
+``myt:`` spans), ``kernels.stem_probe`` (the stem roofline kernel) and
+``config`` (the VOC contract as plain dicts); the serving front door
+(``bench``, ``cli.infer``, ``eval.evaluator``); and the input pipeline — ``data`` (record shards,
 decode and augmentation, the device-geometry planner, ``Loader`` and
 ``WorkerLoader``, the dataset builder) and ``cli.build_dataset``; and the
 training front door — ``train.loop`` (``Trainer``), ``train.checkpoints``,

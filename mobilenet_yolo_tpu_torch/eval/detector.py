@@ -18,6 +18,7 @@ from mobilenet_yolo_tpu_torch.ops.anchors import scaled_anchors
 from mobilenet_yolo_tpu_torch.ops.decode import decode_predictions, reshape_head
 from mobilenet_yolo_tpu_torch.ops.nms import batched_nms
 from mobilenet_yolo_tpu_torch.parallel.mesh import all_gather_cat
+from mobilenet_yolo_tpu_torch.utils.profiling import span
 
 
 def _to_device(arr: np.ndarray, device: torch.device) -> torch.Tensor:
@@ -60,6 +61,12 @@ def make_predict_fn(model: nn.Module, config: dict, top_k: int = 256,
     returns the whole batch's. Under a model axis above 1 a model split by
     ``parallel.sharding.shard_over_model_axis`` runs its column-parallel
     layers over the model group.
+
+    Each call opens, in turn, ``myt:normalise``, the model's spans,
+    ``myt:decode`` (the heads' decode and the seg sigmoid) and
+    ``batched_nms``'s ``myt:select`` and ``myt:nms``
+    (``utils.profiling.span``: recorded while a profiler records host
+    activity).
     """
     yolo_cfg = config["yolo"]
     anchors_px = np.asarray(yolo_cfg["anchors"], np.float32)
@@ -79,22 +86,24 @@ def make_predict_fn(model: nn.Module, config: dict, top_k: int = 256,
         device = images.device
         anchors_norm = scaled_anchors(anchors_px, w, h)
         if normalize:
-            images = ((images.to(torch.float32) / 255.0 - _to_device(norm_mean, device))
-                      / _to_device(norm_std, device))
+            with span("myt:normalise"):
+                images = ((images.to(torch.float32) / 255.0 - _to_device(norm_mean, device))
+                          / _to_device(norm_std, device))
         with torch.autocast(device.type, dtype=dtype, enabled=autocast):
             outputs = model(images.permute(0, 3, 1, 2))
 
-        flats = []
-        for head_key, mask in zip(("out0", "out1"), masks):
-            head = outputs[head_key].permute(0, 2, 3, 1).float()
-            pred = reshape_head(head, num_anchors)
-            flats.append(decode_predictions(pred, _to_device(anchors_norm[mask], device)))
-        preds = torch.cat(flats, dim=1)
+        with span("myt:decode"):
+            flats = []
+            for head_key, mask in zip(("out0", "out1"), masks):
+                head = outputs[head_key].permute(0, 2, 3, 1).float()
+                pred = reshape_head(head, num_anchors)
+                flats.append(decode_predictions(pred, _to_device(anchors_norm[mask], device)))
+            preds = torch.cat(flats, dim=1)
+            seg = (() if "seg" not in outputs
+                   else (torch.sigmoid(outputs["seg"].permute(0, 2, 3, 1).float()),))
         dets, keep = batched_nms(preds, val_conf, top_k=top_k,
                                  iou_threshold=iou_threshold)
-        out = (dets, keep)
-        if "seg" in outputs:
-            out += (torch.sigmoid(outputs["seg"].permute(0, 2, 3, 1).float()),)
+        out = (dets, keep, *seg)
         if mesh is not None:
             out = tuple(all_gather_cat(t, mesh.data_group) for t in out)
         return out

@@ -4,7 +4,9 @@ Port of ``mobilenet_yolo_tpu/models/mbv2_yolo.py:29-67``: a two-scale
 FPN-lite on the MobileNetV2 taps plus an optional segmentation branch.
 ``forward`` returns raw logits ``{"out0", "out1"[, "seg"]}`` as NCHW
 tensors; no decode or NMS inside (those are ``ops/``). ``remat`` recomputes
-the backbone blocks in the backward (``MobileNetV2``).
+the backbone blocks in the backward (``MobileNetV2``). The forward opens
+the spans ``myt:backbone``, ``myt:heads`` (necks, upsample add, both YOLO
+heads) and ``myt:seg_head`` (``utils.profiling.span``).
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ from mobilenet_yolo_tpu_torch.models.layers import (
     upsample_nearest2x,
 )
 from mobilenet_yolo_tpu_torch.models.mobilenetv2 import MobileNetV2
+from mobilenet_yolo_tpu_torch.utils.profiling import span
 
 
 class MBv2YOLO(nn.Module):
@@ -49,12 +52,15 @@ class MBv2YOLO(nn.Module):
             self.seg_headS16 = HeadStack(32, 32, seg_num_classes, **kw)
 
     def forward(self, x: torch.Tensor) -> dict[str, torch.Tensor]:
-        c4, c5 = self.backbone(x)
-        s32 = self.connect_for_S32(self.conv_for_S32(c5))
-        s16 = self.connect_for_S16(self.conv_for_S16(c4))
-        s16 = s16 + upsample_nearest2x(s32)
-        outputs = {"out0": self.yolo_headS32(s32), "out1": self.yolo_headS16(s16)}
+        with span("myt:backbone"):
+            c4, c5 = self.backbone(x)
+        with span("myt:heads"):
+            s32 = self.connect_for_S32(self.conv_for_S32(c5))
+            s16 = self.connect_for_S16(self.conv_for_S16(c4))
+            s16 = s16 + upsample_nearest2x(s32)
+            outputs = {"out0": self.yolo_headS32(s32), "out1": self.yolo_headS16(s16)}
         if self.seg_num_classes > 0:
-            seg = self.seg_connect_for_S16(self.seg_conv_for_S16(c4))
-            outputs["seg"] = self.seg_headS16(seg)
+            with span("myt:seg_head"):
+                seg = self.seg_connect_for_S16(self.seg_conv_for_S16(c4))
+                outputs["seg"] = self.seg_headS16(seg)
         return outputs

@@ -116,7 +116,8 @@ class TrainerConfig:
     ema_decay: float = 0.0
     # capture a torch.profiler trace of this many train steps (after the
     # first two batches) into <tensorboard_dir or checkpoint_dir>/profile,
-    # as a Chrome trace (chrome://tracing, Perfetto). 0 = off.
+    # as a Chrome trace (chrome://tracing, Perfetto) that holds the step's
+    # myt: spans beside the card's work. 0 = off.
     profile_steps: int = 0
 
 
@@ -230,10 +231,12 @@ class Trainer:
             torch.cuda.synchronize(self.device)
 
     def _start_trace(self):
-        activity = (torch.profiler.ProfilerActivity.CUDA if self.device.type == "cuda"
-                    else torch.profiler.ProfilerActivity.CPU)
+        # the host's activity carries the step's myt: spans, the card's its work
+        activities = [torch.profiler.ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            activities.append(torch.profiler.ProfilerActivity.CUDA)
         self._sync()   # batch 0 fully done
-        self._profiler = torch.profiler.profile(activities=[activity])
+        self._profiler = torch.profiler.profile(activities=activities)
         self._profiler.start()
 
     def _stop_trace(self) -> str:

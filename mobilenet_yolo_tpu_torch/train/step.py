@@ -53,6 +53,7 @@ from mobilenet_yolo_tpu_torch.parallel.mesh import all_reduce_, global_sum, grou
 from mobilenet_yolo_tpu_torch.parallel.sharding import agree_replicated_gradients, replicate
 from mobilenet_yolo_tpu_torch.prune import slim_penalty, slim_prox_update
 from mobilenet_yolo_tpu_torch.train.state import TrainState
+from mobilenet_yolo_tpu_torch.utils.profiling import span
 
 HEAD_KEYS = ("out0", "out1")
 GEOMETRY_BATCH_KEYS = ("slots", "src_rect", "dst_rect", "fill_rect", "fill_color",
@@ -213,20 +214,26 @@ def _update(state: TrainState, model: torch.nn.Module, loss_fn: Callable, images
     parameters; the gradients stay on the parameters until the next step.
     Under ``mesh`` the gradients are summed over its data group, and the
     replicated ones taken from the model group's first rank, before the
-    optimizer step."""
+    optimizer step. Spans (``utils.profiling.span``): ``myt:loss`` (the
+    forward, with the model's own spans, and the loss), ``myt:backward``
+    (with the gradients' reduction) and ``myt:optimizer`` (the step, the
+    prox shrink and the EMA)."""
     if state.model is not model:
         raise ValueError("the state holds another model than the step was built for")
     state.optimizer.zero_grad(set_to_none=True)
     group = _data_group(mesh)
-    loss, metrics = loss_fn(images, gt, n_gt, seg_maps)
-    loss.backward()
-    if group is not None:
-        _reduce_gradients(model, group)
-    agree_replicated_gradients(model, mesh)
-    state.optimizer.step()
-    if slim_prox:
-        slim_prox_update(model, state.optimizer, slim_prox)
-    _ema_update(state, ema_decay, ema_ramp)
+    with span("myt:loss"):
+        loss, metrics = loss_fn(images, gt, n_gt, seg_maps)
+    with span("myt:backward"):
+        loss.backward()
+        if group is not None:
+            _reduce_gradients(model, group)
+        agree_replicated_gradients(model, mesh)
+    with span("myt:optimizer"):
+        state.optimizer.step()
+        if slim_prox:
+            slim_prox_update(model, state.optimizer, slim_prox)
+        _ema_update(state, ema_decay, ema_ramp)
     return state, metrics
 
 
@@ -259,8 +266,9 @@ def make_train_step(model: torch.nn.Module, config: dict, segmentation: bool = F
         seg_maps = extra[0] if segmentation else None
         if pixel_aug:
             jitter_op, jitter_factor = extra[-2:]
-            images = planned_color_jitter(images, jitter_op, jitter_factor,
-                                          dtype=dtype or torch.float32)
+            with span("myt:augment"):
+                images = planned_color_jitter(images, jitter_op, jitter_factor,
+                                              dtype=dtype or torch.float32)
         return _update(state, model, loss_fn, images, gt, n_gt, seg_maps, ema_decay, ema_ramp,
                        slim_prox, mesh)
 
@@ -375,13 +383,14 @@ def make_geometry_train_step(model: torch.nn.Module, config: dict, segmentation:
         out_hw = (int(out_hw[0]), int(out_hw[1]))
         ensure_replicated(state)
         mode = geom[0].is_cuda if fused_aug is None else fused_aug
-        images = augment_geometry(geom, aug_seed, out_hw, mode, dtype=aug_dtype, mesh=mesh)
-        seg_maps = None
-        if segmentation:
-            seg_slots, seg_active = args[len(GEOMETRY_BATCH_KEYS):n_geom]
-            src_rect, dst_rect, flip = geom[1], geom[2], geom[6]
-            seg_maps = seg_compose(seg_slots, src_rect, dst_rect, flip, seg_active,
-                                   (out_hw[0] // 16, out_hw[1] // 16), seg_classes)
+        with span("myt:augment"):
+            images = augment_geometry(geom, aug_seed, out_hw, mode, dtype=aug_dtype, mesh=mesh)
+            seg_maps = None
+            if segmentation:
+                seg_slots, seg_active = args[len(GEOMETRY_BATCH_KEYS):n_geom]
+                src_rect, dst_rect, flip = geom[1], geom[2], geom[6]
+                seg_maps = seg_compose(seg_slots, src_rect, dst_rect, flip, seg_active,
+                                       (out_hw[0] // 16, out_hw[1] // 16), seg_classes)
         return _update(state, model, loss_fn, images, gt, n_gt, seg_maps, ema_decay, ema_ramp,
                        slim_prox, mesh)
 

@@ -1,7 +1,9 @@
-"""Tracing and timing helpers (port of ``mobilenet_yolo_tpu/utils/profiling.py``).
+"""Spans and timing helpers (port of ``mobilenet_yolo_tpu/utils/profiling.py``).
 
-* :func:`trace`: a ``torch.profiler`` trace of host and card activity,
-  written for TensorBoard, in place of ``jax.profiler`` (``:24``).
+* :func:`span`: a named span of the port's own work (``myt:<stage>``),
+  entered under any ``torch.profiler`` session and recorded where the
+  session records host activity, on the trace's clock beside the kernels,
+  copies and memsets it launches.
 * :func:`device_ms`: mean time per call of a function. On ``cuda`` it
   reads CUDA events around the calls and synchronises; on ``cpu`` it reads
   the host clock. The device is the caller's to name: there is no fallback
@@ -12,7 +14,6 @@
   in a synchronise: what a caller waits for, launch overheads included.
 * :func:`kernel_ms_by_name`: device time per call of each CUDA kernel a
   function launches, from ``torch.profiler``.
-* :class:`StepTimer`: host wall-clock per named phase, as in JAX (``:62``).
 * The card's peak rates, and :func:`bound_ms`, the least time the card
   could take for some operations and bytes.
 """
@@ -33,18 +34,20 @@ BF16_FLOPS = 989e12
 TF32_FLOPS = 494.7e12
 
 
-@contextlib.contextmanager
-def trace(logdir: str):
-    """Profile the block's host and CUDA activity into ``logdir`` (a
-    TensorBoard trace); yields the ``torch.profiler.profile`` object, whose
-    ``key_averages()`` sums the time by kernel."""
-    activities = [torch.profiler.ProfilerActivity.CPU]
-    if torch.cuda.is_available():
-        activities.append(torch.profiler.ProfilerActivity.CUDA)
-    with torch.profiler.profile(
-            activities=activities,
-            on_trace_ready=torch.profiler.tensorboard_trace_handler(logdir)) as prof:
-        yield prof
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name: str):
+    """``with span("myt:<stage>"):`` marks a stage of the port's work. Under
+    any ``torch.profiler`` session it is a ``record_function``; a session
+    that records host activity holds it on the clock of the device work
+    launched inside it, and a CUDA-only one (:func:`kernel_ms_by_name`)
+    records nothing of it, and pays its host cost, some microseconds a
+    span, outside the device times it reads. With no session it is one
+    shared no-op context, so an unrecorded span costs one check."""
+    if torch.autograd._profiler_enabled():
+        return torch.profiler.record_function(name)
+    return _NO_SPAN
 
 
 def device_ms(fn: Callable[[], object], *, device, iters: int, warmup: int = 2) -> float:
@@ -103,14 +106,22 @@ def bound_ms(flops: float, nbytes: float, flops_per_s: float = F32_FLOPS) -> tup
     return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
 
 
+# sessions kernel_ms_by_name tries: on the H100 machine a short session
+# (0.5-3 ms of kernels) has come back empty, twice in a row once
+PROFILER_SESSIONS = 4
+
+
 def kernel_ms_by_name(fn: Callable[[], object], iters: int) -> dict[str, float]:
     """Device milliseconds per call of ``fn()`` spent in each CUDA kernel it
     launches, keyed by the kernel's function name (no namespace, template
     arguments or parameters), from ``torch.profiler`` over ``iters`` calls
-    after one warmup; empty if the profiler recorded no kernel in two
-    sessions (on the H100 machine one short session, ~3 ms of kernels, once
-    came back empty)."""
-    return _kernel_ms_by_name(fn, iters) or _kernel_ms_by_name(fn, iters)
+    after one warmup; empty if the profiler recorded no kernel in
+    ``PROFILER_SESSIONS`` sessions."""
+    for _ in range(PROFILER_SESSIONS):
+        out = _kernel_ms_by_name(fn, iters)
+        if out:
+            break
+    return out
 
 
 def _kernel_ms_by_name(fn: Callable[[], object], iters: int) -> dict[str, float]:
@@ -128,24 +139,3 @@ def _kernel_ms_by_name(fn: Callable[[], object], iters: int) -> dict[str, float]
         name = name.split("::")[-1].split()[-1]
         out[name] = out.get(name, 0.0) + e.device_time_total / iters / 1e3
     return out
-
-
-class StepTimer:
-    """Accumulates wall-clock per named phase (host-side, coarse)."""
-
-    def __init__(self):
-        self.totals: dict[str, float] = {}
-        self.counts: dict[str, int] = {}
-
-    @contextlib.contextmanager
-    def phase(self, name: str):
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            dt = time.perf_counter() - t0
-            self.totals[name] = self.totals.get(name, 0.0) + dt
-            self.counts[name] = self.counts.get(name, 0) + 1
-
-    def summary(self) -> dict[str, float]:
-        return {k: self.totals[k] / max(self.counts[k], 1) for k in self.totals}

@@ -396,7 +396,8 @@ def _traces(tb):
 
 def test_profile_steps_writes_trace(tmp_path):
     """``test_trainer_fit.py:test_profile_steps_writes_trace``: a Chrome
-    trace of the warm steps under ``<tensorboard_dir>/profile``."""
+    trace of the warm steps under ``<tensorboard_dir>/profile``, holding the
+    step's ``myt:`` spans (the host's activity is recorded)."""
     tcfg = TrainerConfig(epochs=1, learning_rate=1e-3, checkpoint_dir=str(tmp_path / "ckpt"),
                          tensorboard_dir=str(tmp_path / "tb"), eval_every=2, profile_steps=1)
     trainer = Trainer(_model(), CFG, CLASSES, tcfg, verbose=False, device="cpu")
@@ -405,7 +406,9 @@ def test_profile_steps_writes_trace(tmp_path):
     traces = _traces(tmp_path / "tb")
     assert len(traces) == 1 and trainer._profiled
     with open(traces[0]) as f:
-        assert json.load(f)["traceEvents"]
+        events = json.load(f)["traceEvents"]
+    names = {e.get("name") for e in events if e.get("cat") == "user_annotation"}
+    assert {"myt:loss", "myt:backward", "myt:optimizer", "myt:backbone", "myt:heads"} <= names
 
 
 def test_profile_steps_longer_than_epoch(tmp_path):
@@ -418,3 +421,26 @@ def test_profile_steps_longer_than_epoch(tmp_path):
     trainer.fit(_loader_factory(seeds), _loader_factory(seeds))
     assert trainer._profiled and not trainer._trace_open
     assert len(_traces(tmp_path / "tb")) == 1
+
+
+def test_profile_trace_records_the_host_beside_the_card(tmp_path, monkeypatch):
+    """On a card the ``--profile-steps`` trace records the host's activity
+    too, so the step's ``myt:`` spans reach it beside the card's work."""
+    tcfg = TrainerConfig(epochs=1, learning_rate=1e-3, checkpoint_dir=str(tmp_path / "ckpt"),
+                         tensorboard_dir=str(tmp_path / "tb"), profile_steps=1)
+    trainer = Trainer(_model(), CFG, CLASSES, tcfg, verbose=False, device="cpu")
+    trainer.device = torch.device("cuda")
+    seen = []
+
+    class _Profile:
+        def __init__(self, activities):
+            seen.extend(activities)
+
+        def start(self):
+            pass
+
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *args: None)
+    monkeypatch.setattr(torch.profiler, "profile", _Profile)
+    trainer._start_trace()
+    act = torch.profiler.ProfilerActivity
+    assert sorted(seen, key=str) == sorted([act.CPU, act.CUDA], key=str)
